@@ -2,8 +2,12 @@
 // engine, hand-written for Hopper (sm_90a).
 //
 // Replaces: genomicsdb_tpu/ops/pallas_combine.py::_make_kernel_rt (the
-// TPU kernel launched by fused_gather_remap_rt).  Same outputs, bit for
-// bit, at every (record b, sample s), including those with no live cell.
+// TPU kernel launched by fused_gather_remap_rt), in its wide form and in
+// its narrow form (cfg.narrow / cfg.narrow_scalars), and
+// pallas_combine.py::_make_kernel (launched by fused_gather_remap), whose
+// function is the wide, non-mixed case of this one.  Same outputs, bit
+// for bit, at every (record b, sample s), including those with no live
+// cell.
 //
 // What it computes, per (b, s):
 //   * gathers the live cell c = live[b, s] of sample s: PL, PL length,
@@ -24,11 +28,20 @@
 //     quiet-NaN bits 0x7FC00000 where there is no live cell (a stored
 //     -0.0 survives).
 //
+// Narrow form (template flag kNarrow): PL, AD and GT are stored as int16
+// with the BCF16 sentinels (INT_MISSING -> -32768, INT_VECTOR_END ->
+// -32767), and with kNarrowScalars so are GQ, FORMAT DP and MIN_DP.  Any
+// other value is cast unclamped: the host checked that every input value
+// lies in [-32000, 32000] before it chose this form, and the remap only
+// permutes values and adds sentinels.  INFO DP and the INFO rows stay
+// 32-bit.  One kernel body serves both forms, so the remap is written
+// once.
+//
 // What bounds it: bytes.  It is an int32 gather and select with no
 // matrix work, so the tensor cores have nothing to do: per (b, s) it
 // reads one cell's fields and the LUT row, and writes G_out + M + gt_w
-// + 4 + F int32 words.  On an H100 the floor is the output write at
-// device-memory bandwidth.
+// + 4 + F words (int32 wide; the PL/AD/GT and scalar words int16 narrow).
+// On an H100 the floor is the output write at device-memory bandwidth.
 //
 // Design (a first, simple kernel): one thread per (b, s), samples on the
 // fast thread axis, so a warp covers 32 neighbouring samples of one
@@ -56,6 +69,8 @@ namespace {
 constexpr int kIntMissing = INT32_MIN;            // bcf_int32_missing
 constexpr int kIntVectorEnd = INT32_MIN + 1;      // bcf_int32_vector_end
 constexpr int kNanBits = 0x7FC00000;              // float32 quiet NaN
+constexpr int16_t kInt16Missing = -32768;         // bcf_int16_missing
+constexpr int16_t kInt16VectorEnd = -32767;       // bcf_int16_vector_end
 constexpr int kMaxPloidy = 6;
 constexpr int kMaxMerged = 16;
 constexpr int kThreads = 256;
@@ -84,13 +99,13 @@ struct Args {
   // combo tables: header of 3 ints per ploidy p (combo offset, max-allele
   // offset, genotype count G_p) for p = 0..6, then the data
   const int* tables;
-  // outputs
-  int* pl_out;          // [B, S, G_out]
-  int* ad_out;          // [B, S, M]
-  int* gt_out;          // [B, S, gt_w]
-  int* gq_out;          // [B, S]
-  int* dpf_out;         // [B, S]
-  int* mdp_out;         // [B, S]
+  // outputs: int32, or int16 where the narrow form says so
+  void* pl_out;         // [B, S, G_out]
+  void* ad_out;         // [B, S, M]
+  void* gt_out;         // [B, S, gt_w]
+  void* gq_out;         // [B, S]
+  void* dpf_out;        // [B, S]
+  void* mdp_out;        // [B, S]
   int* dpi_out;         // [B, S]
   int* info_f_out;      // [F, B, S] float32 bits
   int* info_i_out;      // [Fi, B, S]
@@ -113,6 +128,19 @@ __device__ __forceinline__ int gt_index_term(int a, int i) {
   return (int)(t / f);
 }
 
+// Stores v at out[i]: as int32, or as int16 with the BCF16 sentinels
+// (pallas_combine.py's to16).
+template <bool kNarrowOut>
+__device__ __forceinline__ void put(void* out, int64_t i, int v) {
+  if constexpr (kNarrowOut) {
+    static_cast<int16_t*>(out)[i] = v == kIntMissing ? kInt16Missing
+        : v == kIntVectorEnd ? kInt16VectorEnd : (int16_t)v;
+  } else {
+    static_cast<int*>(out)[i] = v;
+  }
+}
+
+template <bool kNarrow, bool kNarrowScalars>
 __global__ void __launch_bounds__(kThreads)
 fused_gather_remap_kernel(const Args A) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -135,7 +163,7 @@ fused_gather_remap_kernel(const Args A) {
   // ---- PL genotype remap ----
   const int pll = valid ? A.pl_len[cell] : 0;
   const int* plrow = A.pl + cell * A.G_in;
-  int* plo = A.pl_out + bs * A.G_out;
+  const int64_t plo = bs * A.G_out;
   int p_call = A.ploidy;
   if (A.mixed) {
     const int gl = A.gt_len[bs];
@@ -170,26 +198,27 @@ fused_gather_remap_kernel(const Args A) {
     for (int i = 0; i < p_call; ++i) in_gt += gt_index_term(a[i], i);
     const bool ok = !missing && in_gt < pll && in_gt < A.G_in
         && max_a[g] < nm;
-    plo[g] = ok ? plrow[in_gt] : kIntMissing;
+    put<kNarrow>(A.pl_out, plo + g, ok ? plrow[in_gt] : kIntMissing);
   }
   // rows past this call's genotype count: only in mixed ploidy, where
   // they (and every row of a ploidy-0 call) are VECTOR_END
-  for (int g = G_p; g < A.G_out; ++g) plo[g] = kIntVectorEnd;
+  for (int g = G_p; g < A.G_out; ++g)
+    put<kNarrow>(A.pl_out, plo + g, kIntVectorEnd);
 
   // ---- AD allele remap ----
   const int adl = valid ? A.ad_len[cell] : 0;
   const int* adrow = A.ad + cell * A.A_in;
-  int* ado = A.ad_out + bs * A.M;
+  const int64_t ado = bs * A.M;
   for (int m = 0; m < A.M; ++m) {
     int x = inv[m];
     if (x == -1) x = nr >= 0 ? nr : -1;
     const bool ok = x >= 0 && x < adl && x < A.A_in && m < nm;
-    ado[m] = ok ? adrow[x] : kIntMissing;
+    put<kNarrow>(A.ad_out, ado + m, ok ? adrow[x] : kIntMissing);
   }
 
   // ---- GT remap ----
   const int* gtrow = A.gt + cell * A.gt_w;
-  int* gto = A.gt_out + bs * A.gt_w;
+  const int64_t gto = bs * A.gt_w;
   const int gl = A.mixed ? A.gt_len[bs] : A.gt_w;
   for (int p = 0; p < A.gt_w; ++p) {
     const int x = valid ? gtrow[p] : kIntMissing;
@@ -201,13 +230,13 @@ fused_gather_remap_kernel(const Args A) {
       if (x >= 0 && x != kIntMissing)
         o = merged >= 0 ? merged : nr_merged;
     }
-    gto[p] = p < gl ? o : kIntVectorEnd;
+    put<kNarrow>(A.gt_out, gto + p, p < gl ? o : kIntVectorEnd);
   }
 
   // ---- passthrough scalars + INFO rows ----
-  A.gq_out[bs] = valid ? A.gq[cell] : kIntMissing;
-  A.dpf_out[bs] = valid ? A.dp[cell] : kIntMissing;
-  A.mdp_out[bs] = valid ? A.min_dp[cell] : kIntMissing;
+  put<kNarrowScalars>(A.gq_out, bs, valid ? A.gq[cell] : kIntMissing);
+  put<kNarrowScalars>(A.dpf_out, bs, valid ? A.dp[cell] : kIntMissing);
+  put<kNarrowScalars>(A.mdp_out, bs, valid ? A.min_dp[cell] : kIntMissing);
   A.dpi_out[bs] = valid ? A.dp_info[cell] : kIntMissing;
   const int64_t sc = A.S * A.C;
   const int64_t bsz = A.B * A.S;
@@ -223,6 +252,9 @@ fused_gather_remap_kernel(const Args A) {
 
 }  // namespace
 
+// narrow = 0: every output int32 (the wide form).  narrow = 1: PL/AD/GT
+// int16; narrow_scalars = 1 (only with narrow = 1): GQ/DP/MIN_DP int16
+// too.  Output pointers must match those widths.
 extern "C" int gdb_fused_gather_remap(
     const void* pl, const void* pl_len, const void* ad, const void* ad_len,
     const void* gt, const void* gq, const void* dp, const void* min_dp,
@@ -234,8 +266,9 @@ extern "C" int gdb_fused_gather_remap(
     void* dpi_out, void* info_f_out, void* info_i_out, void* info_fs_out,
     long long B, long long S, long long C, int G_in, int A_in, int gt_w,
     int M, int G_out, int ploidy, int F, int Fi, int Fs, int phase,
-    int mixed, void* stream) {
-  if (M > kMaxMerged || ploidy > kMaxPloidy || ploidy < 1)
+    int mixed, int narrow, int narrow_scalars, void* stream) {
+  if (M > kMaxMerged || ploidy > kMaxPloidy || ploidy < 1
+      || (narrow_scalars && !narrow))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.pl = (const int*)pl;
@@ -257,12 +290,12 @@ extern "C" int gdb_fused_gather_remap(
   a.rec_nr = (const int*)rec_nr;
   a.gt_len = (const int*)gt_len;
   a.tables = (const int*)tables;
-  a.pl_out = (int*)pl_out;
-  a.ad_out = (int*)ad_out;
-  a.gt_out = (int*)gt_out;
-  a.gq_out = (int*)gq_out;
-  a.dpf_out = (int*)dpf_out;
-  a.mdp_out = (int*)mdp_out;
+  a.pl_out = pl_out;
+  a.ad_out = ad_out;
+  a.gt_out = gt_out;
+  a.gq_out = gq_out;
+  a.dpf_out = dpf_out;
+  a.mdp_out = mdp_out;
   a.dpi_out = (int*)dpi_out;
   a.info_f_out = (int*)info_f_out;
   a.info_i_out = (int*)info_i_out;
@@ -283,9 +316,14 @@ extern "C" int gdb_fused_gather_remap(
   a.mixed = mixed;
   const long long n = B * S;
   if (n == 0) return (int)cudaSuccess;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  fused_gather_remap_kernel<<<(unsigned)blocks, kThreads, 0,
-                              (cudaStream_t)stream>>>(a);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!narrow)
+    fused_gather_remap_kernel<false, false><<<blocks, kThreads, 0, st>>>(a);
+  else if (!narrow_scalars)
+    fused_gather_remap_kernel<true, false><<<blocks, kThreads, 0, st>>>(a);
+  else
+    fused_gather_remap_kernel<true, true><<<blocks, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -15,13 +15,20 @@ and masked reductions:
 
 `combine_step` serves the blocks the CUDA kernel refuses (more than 16
 merged alleles, ploidy above 6); its remap math is also the plain twin
-of that kernel.  Full width only: the JAX package's `remap_rows` /
-`med_rows` restrictions are not ported.
+of that kernel.  `med_rows` restricts the INFO reductions as in the JAX
+package; its `remap_rows` restriction (the JAX CPU-device configuration)
+is not ported: the port's CPU device runs the kernel's twin.
+
+Below the combine is the device->host fetch pack (the JAX module's
+`PACK_SPECS` ... `host_identity_outputs`): the big outputs are narrowed
+to int16 / int8 on the device and fetched, with the small full outputs,
+as one contiguous byte blob, optionally holding only the variant rows;
+the host widens them and rebuilds the ref-block rows itself.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +40,8 @@ from .cell_block import genotype_combo_table
 
 INT_MISSING = formats.INT_MISSING
 INT_VECTOR_END = formats.INT_VECTOR_END
+INT16_MISSING = -32768       # bcf_int16_missing
+INT16_VECTOR_END = -32767    # bcf_int16_vector_end
 
 
 def _gather_cells(x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
@@ -156,6 +165,17 @@ def _reduce_math(gqg, dpfg, mdpg, dpig, infog, infoig, infofsg, valid
     }
 
 
+def _restrict_rows(infog, infoig, infofsg, valid, med_rows):
+    """The INFO median / sum inputs [F, B, S] and their validity [B, S]
+    restricted to `med_rows` (the rows carrying any valid input; the
+    writer scatters the [F, len(med_rows)] results back), or unchanged
+    when `med_rows` is None."""
+    if med_rows is None:
+        return infog, infoig, infofsg, valid
+    idx = torch.as_tensor(med_rows, device=valid.device).long()
+    return infog[:, idx], infoig[:, idx], infofsg[:, idx], valid[idx]
+
+
 def gather_on_device(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info,
                      info_f, info_i, info_fs, live, del_rw=None):
     """Per-(record, sample) live-cell gather of the [S, C, ...] cell
@@ -193,12 +213,13 @@ def gather_on_device(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info,
 def combine_step(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
                  dp_info, info_f, info_i, info_fs, inv_bs, nr_bs,
                  rec_num_merged, rec_has_nr, live, del_rw=None,
-                 gt_len_bs=None, *, max_merged: int, ploidy: int,
-                 gt_phase: bool = False, mixed_ploidy: bool = False
-                 ) -> Dict[str, torch.Tensor]:
+                 gt_len_bs=None, med_rows=None, *, max_merged: int,
+                 ploidy: int, gt_phase: bool = False,
+                 mixed_ploidy: bool = False) -> Dict[str, torch.Tensor]:
     """The whole combine on tensors of one device (argument order of
     `block_to_tensors`).  Returns the output dict of the JAX
-    `combine_step`, with the same keys and dtypes."""
+    `combine_step`, with the same keys and dtypes; with `med_rows`, the
+    INFO reductions cover those rows only."""
     live = live.to(torch.int32)
     inv_bs = inv_bs.to(torch.int32)
     nr_bs = nr_bs.to(torch.int32)
@@ -212,7 +233,8 @@ def combine_step(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
         rec_num_merged, rec_has_nr, gt_len_bs, max_merged=max_merged,
         ploidy=ploidy, gt_phase=gt_phase, mixed_ploidy=mixed_ploidy)
     out = _reduce_math(g["gqg"], g["dpfg"], g["mdpg"], g["dpig"],
-                       g["infog"], g["infoig"], g["infofsg"], g["valid"])
+                       *_restrict_rows(g["infog"], g["infoig"],
+                                       g["infofsg"], g["valid"], med_rows))
     out.update({"pl": pl_out, "ad": ad_out, "gt": gt_out, "live": live})
     return out
 
@@ -261,3 +283,331 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     if not a.flags.writeable:
         a = a.copy()
     return torch.from_numpy(a).to(device)
+
+
+# ---------------- device->host fetch compaction ----------------
+#
+# The JAX module's fetch pack (genomicsdb_tpu.ops.combine_step:443-872).
+# The big output tensors carry small values (PL/AD counters, allele
+# codes), so the device narrows them to int16/int8 after the combine (or
+# the kernel already wrote them narrow); the host fetches the narrow copy
+# plus a per-tensor "fits" flag, and fetches the int32 original only
+# when a value genuinely overflows.  Sentinels map to the matching BCF
+# narrow sentinels.  The blob layout is the JAX package's, byte for
+# byte: sorted keys, each part padded to 8 bytes, a fits flag before its
+# data, then the small full outputs.
+
+PACK_SPECS = {
+    # key -> (np dtype, missing, vector_end, lo, hi)
+    "pl": (np.int16, -32768, -32767, -32000, 32000),
+    "ad": (np.int16, -32768, -32767, -32000, 32000),
+    "gt": (np.int8, -128, -127, -100, 100),
+    "gq": (np.int16, -32768, -32767, -32000, 32000),
+    "dp_format": (np.int16, -32768, -32767, -32000, 32000),
+    "min_dp": (np.int16, -32768, -32767, -32000, 32000),
+    "live": (np.int16, -32768, -32767, -32000, 32000),
+}
+
+IDENT_KEYS = ("pl", "ad", "gt", "gq", "dp_format", "min_dp")
+
+_TORCH_OF_NP = {np.dtype(np.int8): torch.int8,
+                np.dtype(np.int16): torch.int16}
+_NP_OF_TORCH = {torch.bool: np.uint8, torch.uint8: np.uint8,
+                torch.int8: np.int8, torch.int16: np.int16,
+                torch.int32: np.int32, torch.int64: np.int64,
+                torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _narrow_one(k: str, v: torch.Tensor):
+    """(fits, packed) for one PACK_SPECS tensor.  An int16 input is
+    already narrowed by the kernel (BCF16 sentinels baked in): int16-spec
+    keys pass through (fits is constant True: the host proved the input
+    ranges before it chose the narrow kernel); int8-spec keys (gt)
+    re-narrow 16->8 with the sentinel remap."""
+    dt, miss, eov, lo, hi = PACK_SPECS[k]
+    if v.dtype == torch.int16:
+        if np.dtype(dt) == np.int16:
+            return torch.ones((), dtype=torch.bool, device=v.device), v
+        src_miss, src_eov = INT16_MISSING, INT16_VECTOR_END
+    else:
+        src_miss, src_eov = INT_MISSING, INT_VECTOR_END
+    is_m = v == src_miss
+    is_e = v == src_eov
+    ok = (is_m | is_e | ((v >= lo) & (v <= hi))).all()
+    p = torch.where(is_m, miss, torch.where(is_e, eov, v.clamp(lo, hi)))
+    return ok, p.to(_TORCH_OF_NP[np.dtype(dt)])
+
+
+def pack_outputs(out: Dict[str, torch.Tensor],
+                 rows: Optional[np.ndarray] = None) -> Optional[Dict]:
+    """The whole fetch tree of a combine output dict as ONE contiguous
+    uint8 tensor on its device: the narrowed PACK_SPECS tensors with
+    their fits flags, then every other output whole.  With `rows`, only
+    those [B, ...] rows of the narrowed tensors are kept: the
+    variant-record-only fetch (ref-block rows are identity remaps the
+    host rebuilds, host_identity_outputs).
+
+    On a CUDA device the blob's copy to the host starts here: into a
+    pinned host buffer that this pack owns, with an event recorded
+    after the copy that the fetch waits on (the JAX writer's
+    `copy_to_host_async`).  Returns {"__blob__", "__layout__"} (plus
+    "__host__" and "__ready__" on CUDA), or None when `out` holds no
+    packable tensor."""
+    packable = {k: v for k, v in out.items()
+                if k in PACK_SPECS and k != "live"}
+    if not packable:
+        return None
+    extras = {k: v for k, v in out.items() if k not in PACK_SPECS}
+    dev = next(iter(packable.values())).device
+    idx = None if rows is None else torch.as_tensor(
+        np.asarray(rows, dtype=np.int64), device=dev)
+    parts, layout = [], []
+
+    def emit(name: str, v: torch.Tensor, is_bool: bool = False) -> None:
+        dt = np.dtype(_NP_OF_TORCH[v.dtype])
+        if v.dtype == torch.bool:
+            v = v.to(torch.uint8)
+        b = v.contiguous().reshape(-1).view(torch.uint8)
+        pad = (-b.numel()) % 8
+        parts.append(b)
+        if pad:
+            parts.append(torch.zeros(pad, dtype=torch.uint8, device=dev))
+        layout.append((name, dt.str, tuple(v.shape), is_bool,
+                       b.numel() + pad))
+
+    for k in sorted(packable):
+        v = packable[k] if idx is None else packable[k][idx]
+        ok, p = _narrow_one(k, v)
+        emit("fits::" + k, ok.reshape(1), is_bool=True)
+        emit("data::" + k, p)
+    for k in sorted(extras):
+        v = extras[k]
+        emit("x::" + k, v, is_bool=v.dtype == torch.bool)
+    blob = torch.cat(parts)
+    packed = {"__blob__": blob, "__layout__": layout}
+    if blob.device.type == "cuda":
+        host = torch.empty(blob.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(blob, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(blob.device))
+        packed.update({"__host__": host, "__ready__": ready})
+    return packed
+
+
+def _host_blob(packed: Dict) -> np.ndarray:
+    """The blob's bytes on the host: the pinned copy pack_outputs
+    started, once its event has completed, or the CPU blob itself."""
+    fetch_outputs.fetched_bytes += packed["__blob__"].numel()
+    host = packed.get("__host__")
+    if host is None:
+        return packed["__blob__"].numpy()
+    packed["__ready__"].synchronize()
+    return host.numpy()
+
+
+def _fetch_whole(v: torch.Tensor) -> np.ndarray:
+    fetch_outputs.fetched_bytes += v.numel() * v.element_size()
+    return v.cpu().numpy()
+
+
+def _unpack_blob(blob: np.ndarray, layout) -> Dict[str, np.ndarray]:
+    """Host views over the fetched blob (zero extra copies)."""
+    out = {}
+    off = 0
+    for name, dtstr, shape, is_bool, padded in layout:
+        dt = np.dtype(dtstr)
+        n = int(np.prod(shape, dtype=np.int64))
+        a = np.frombuffer(blob, dtype=dt, count=n, offset=off)
+        a = a.reshape(shape)
+        if is_bool:
+            a = a != 0
+        out[name] = a
+        off += padded
+    return out
+
+
+def _widen(v: np.ndarray, miss: int, eov: int) -> np.ndarray:
+    w = v.astype(np.int32)
+    w[v == miss] = INT_MISSING
+    w[v == eov] = INT_VECTOR_END
+    return w
+
+
+def _fetch_blob_tree(out: Dict[str, torch.Tensor], packed: Dict):
+    """ONE device->host copy for the whole fetch tree (see
+    pack_outputs): host views over the blob, and a fetch of the whole
+    device tensor only for a key whose fits flag reads false (the
+    kernel-narrowed int16 tensor then, never a stale int32 one)."""
+    parts = _unpack_blob(_host_blob(packed), packed["__layout__"])
+    got: Dict[str, np.ndarray] = {}
+    narrow = set()
+    for k, v in out.items():
+        if ("data::" + k) in parts and bool(parts["fits::" + k][0]):
+            got[k] = parts["data::" + k]
+            narrow.add(k)
+        elif ("x::" + k) in parts:
+            got[k] = parts["x::" + k]
+        else:
+            got[k] = _fetch_whole(v)
+    return got, narrow
+
+
+def fetch_outputs(out: Dict[str, torch.Tensor],
+                  packed: Optional[Dict] = None) -> Dict[str, np.ndarray]:
+    """Host arrays of a combine-step output dict.  With `packed` (from
+    pack_outputs), narrow tensors come from the blob and are widened on
+    the host; an int32 original is fetched only if its values
+    overflowed.  Every fetch (this one, fetch_outputs_split) adds the
+    bytes it copies to the host to `fetch_outputs.fetched_bytes`."""
+    if packed is None:
+        return {k: _fetch_whole(v) for k, v in out.items()}
+    got, narrow = _fetch_blob_tree(out, packed)
+    dev: Dict[str, np.ndarray] = {}
+    for k, v in got.items():
+        if k in narrow:
+            _, miss, eov, _, _ = PACK_SPECS[k]
+            dev[k] = _widen(v, miss, eov)
+        elif k in PACK_SPECS and v.dtype == np.int16:
+            # kernel-narrowed tensor fetched whole: BCF16 sentinels
+            dev[k] = _widen(v, INT16_MISSING, INT16_VECTOR_END)
+        else:
+            dev[k] = v
+    return dev
+
+
+fetch_outputs.fetched_bytes = 0
+
+
+def fetch_outputs_split(out: Dict[str, torch.Tensor], packed: Dict,
+                        var_rows: np.ndarray, ref_rows: np.ndarray,
+                        ident) -> Dict[str, np.ndarray]:
+    """Full-size host outputs from a variant-row-only fetch
+    (pack_outputs(rows=var_rows)) plus host-rebuilt ref-block rows.
+    `ident` is either the host_identity_outputs dict, or a callable
+    `fill(full_arrays) -> bool` that writes the ref rows straight into
+    the preallocated full arrays (the native scatter path), and returns
+    the dict when called with None.  Reductions and int32 overflow
+    fallbacks come back full."""
+    from genomicsdb_tpu.runtime import native_loader
+    got, narrow = _fetch_blob_tree(
+        {k: v for k, v in out.items() if k != "live"}, packed)
+    B = out["live"].shape[0]
+    dev: Dict[str, np.ndarray] = {}
+    ident_full: Dict[str, np.ndarray] = {}
+    for k, v in got.items():
+        if k in narrow:
+            _, miss, eov, _, _ = PACK_SPECS[k]
+            if v.ndim == 2:
+                # [B, S] presence columns: rows outside the scatter
+                # (no live cell / bucket padding) must read MISSING
+                full = np.full((B,) + v.shape[1:], INT_MISSING,
+                               dtype=np.int32)
+            else:
+                # [B, S, W] value tensors are only read at live cells
+                # of emitted rows, all covered by the scatter
+                full = np.empty((B,) + v.shape[1:], dtype=np.int32)
+            # widen + sentinel remap + scatter in one threaded native
+            # pass (numpy otherwise)
+            if native_loader.widen_scatter(v, var_rows, miss, eov,
+                                           full) is None:
+                full[var_rows] = _widen(v, miss, eov)
+            if k in IDENT_KEYS:
+                ident_full[k] = full
+            dev[k] = full
+        elif k in PACK_SPECS and v.dtype == np.int16:
+            # kernel-narrowed tensor fetched whole (not row-sliced)
+            dev[k] = _widen(v, INT16_MISSING, INT16_VECTOR_END)
+        else:
+            dev[k] = v
+    if ident_full:
+        filled = False
+        ident_dict = ident if isinstance(ident, dict) else None
+        if callable(ident) and set(ident_full) == set(IDENT_KEYS):
+            filled = bool(ident(ident_full))
+        if not filled:
+            if ident_dict is None:
+                ident_dict = ident(None) if callable(ident) else {}
+            for k, full in ident_full.items():
+                if k in ident_dict:
+                    full[ref_rows] = ident_dict[k]
+    return dev
+
+
+def host_identity_outputs(blk, rows: np.ndarray,
+                          widths: Tuple[int, int, int], gt_phase: bool,
+                          mixed_ploidy: bool) -> Dict[str, np.ndarray]:
+    """Combine outputs for REF-BLOCK-ONLY records, computed on the host.
+
+    Every live cell of such a record is a pure reference block: the
+    allele LUT is the identity [REF, NON_REF] and the device remap is a
+    masked passthrough of the raw cell values, which the host already
+    holds.  Equal to the device combine at these rows: PL slots
+    g <= ploidy gated by pl_len / ploidy class (ploidy-0 calls stay
+    INT_VECTOR_END in mixed mode); AD slots m < 2 gated by ad_len; GT
+    allele slots pass through with absent alleles mapped to the NON_REF
+    merged index 1, phase slots untouched; GQ/DP/MIN_DP masked
+    passthroughs.  The shared native `identity_outputs` computes it;
+    the numpy form below runs without the native library."""
+    from genomicsdb_tpu.runtime import native_loader
+    G_out, M_out, P_out = widths
+    S = blk.live.shape[1]
+    live = np.asarray(blk.live)[rows]
+    gtl_r = np.asarray(blk.gt_len_bs)[rows] if mixed_ploidy else None
+    nat = native_loader.identity_outputs(
+        live, blk.pl, blk.pl_len, blk.ad, blk.ad_len, blk.gt, blk.gq,
+        blk.dp, blk.min_dp, gtl_r, widths, blk.ploidy, gt_phase,
+        mixed_ploidy)
+    if nat is not None:
+        return nat
+    ok = live >= 0
+    kk = np.clip(live, 0, blk.col.shape[1] - 1)
+    s_i = np.arange(S)[None, :]
+
+    def g2(x, fill):
+        return np.where(ok, x[s_i, kk], fill).astype(np.int32)
+
+    def g3(x, fill, width):
+        g = np.where(ok[..., None], x[s_i, kk], fill)
+        if g.shape[2] < width:
+            g = np.pad(g, ((0, 0), (0, 0), (0, width - g.shape[2])),
+                       constant_values=fill)
+        return g[:, :, :width].astype(np.int32)
+
+    if mixed_ploidy:
+        p_bs = (gtl_r + 1) // 2 if gt_phase else gtl_r
+    else:
+        p_bs = np.full(ok.shape, blk.ploidy, dtype=np.int64)
+    # PL: genotypes over 2 alleles at ploidy p are the first p+1 slots
+    pl_raw = g3(blk.pl, INT_MISSING, G_out)
+    pl_len = g2(blk.pl_len, 0)
+    g_idx = np.arange(G_out)[None, None, :]
+    ok_pl = (g_idx <= p_bs[..., None]) & (g_idx < pl_len[..., None]) \
+        & ok[..., None]
+    pl_out = np.where(ok_pl, pl_raw, INT_MISSING)
+    if mixed_ploidy:
+        pl_out = np.where((p_bs == 0)[..., None], INT_VECTOR_END, pl_out)
+    # AD: slots m < num_merged (= 2) gated by ad_len
+    ad_raw = g3(blk.ad, INT_MISSING, M_out)
+    ad_len = g2(blk.ad_len, 0)
+    m_idx = np.arange(M_out)[None, None, :]
+    ok_ad = (m_idx < 2) & (m_idx < ad_len[..., None]) & ok[..., None]
+    ad_out = np.where(ok_ad, ad_raw, INT_MISSING)
+    # GT: identity allele remap with NON_REF fallback (merged idx 1)
+    gt_raw = g3(blk.gt, INT_MISSING, P_out)
+    gt_out = np.empty_like(gt_raw)
+    for p in range(P_out):
+        a = gt_raw[..., p]
+        if gt_phase and p % 2 == 1:
+            o = a
+        else:
+            oka = (a >= 0) & (a != INT_MISSING)
+            o = np.where(oka, np.where(a < 2, a, 1), a)
+        if mixed_ploidy:
+            o = np.where(p < gtl_r, o, INT_VECTOR_END)
+        gt_out[..., p] = o
+    return {
+        "pl": pl_out, "ad": ad_out, "gt": gt_out,
+        "gq": g2(blk.gq, INT_MISSING),
+        "dp_format": g2(blk.dp, INT_MISSING),
+        "min_dp": g2(blk.min_dp, INT_MISSING),
+    }

@@ -2,9 +2,12 @@
 of `genomicsdb_tpu.ops.pallas_combine`).
 
   fused_gather_remap      the wrapper: launches csrc/fused_gather_remap.cu
-                          for CUDA tensors, runs the plain twin for CPU
-                          tensors, raises for anything else
+                          (wide, or narrow: int16 outputs) for CUDA
+                          tensors, runs the plain twin for CPU tensors,
+                          raises for anything else
   fused_gather_remap_ref  the plain twin (torch ops, any device)
+  _narrow_inputs_ok,      the host range checks that allow the narrow
+  _narrow_scalars_ok      form, cached on the store-wide layout
   combine_step_fused      the kernel plus the cross-sample reductions,
                           under the JAX package's gates
   combine_block           the block engine's combine: combine_step_fused
@@ -26,15 +29,77 @@ import torch
 from genomicsdb_tpu.core import formats
 
 from .cell_block import genotype_combo_table
-from .combine_step import (_reduce_math, _remap_math, block_to_tensors,
+from .combine_step import (INT16_MISSING, INT16_VECTOR_END, _reduce_math,
+                           _remap_math, _restrict_rows, block_to_tensors,
                            combine_step, gather_on_device)
 
 INT_MISSING = formats.INT_MISSING
+INT_VECTOR_END = formats.INT_VECTOR_END
+NARROW_LIMIT = 32000         # values the narrow form carries: |v| <= this
 MAX_PLOIDY = 6          # the kernel's per-call ploidy limit
 MAX_MERGED = 16         # the kernel's merged-allele limit
 
 _OUT_KEYS = ("pl", "ad", "gt", "gq", "dp_format", "min_dp", "dp_info",
              "info_f", "info_i", "info_fs")
+_NARROW_KEYS = ("pl", "ad", "gt")              # int16 in narrow mode
+_SCALAR_KEYS = ("gq", "dp_format", "min_dp")   # int16 with narrow_scalars
+
+
+def to16(x: torch.Tensor) -> torch.Tensor:
+    """int32 -> int16 with the BCF16 sentinels (the Pallas kernel's
+    `to16`): INT_MISSING -> -32768, INT_VECTOR_END -> -32767, any other
+    value cast unclamped."""
+    y = torch.where(x == INT_MISSING, INT16_MISSING,
+                    torch.where(x == INT_VECTOR_END, INT16_VECTOR_END, x))
+    return y.to(torch.int16)
+
+
+def widen16(x16: torch.Tensor) -> torch.Tensor:
+    """The inverse of `to16`: int16 -> int32 with the sentinels mapped
+    back."""
+    x = torch.where(x16 == INT16_MISSING, INT_MISSING, x16.to(torch.int32))
+    return torch.where(x16 == INT16_VECTOR_END, INT_VECTOR_END, x)
+
+
+def _fits_int16(arrays) -> bool:
+    for a in arrays:
+        a = np.asarray(a)
+        fits = (((a >= -NARROW_LIMIT) & (a <= NARROW_LIMIT))
+                | (a == INT_MISSING) | (a == INT_VECTOR_END))
+        if not fits.all():
+            return False
+    return True
+
+
+def _range_check(blk, key: str, names) -> bool:
+    """_fits_int16 of the block's `names` slabs, cached on the block's
+    store-wide dense layout under `key` with the slabs it was computed
+    from: every chunk and query of a store shares the layout, and a
+    block whose slabs are other arrays is checked anew."""
+    arrays = tuple(getattr(blk, n) for n in names)
+    lay = getattr(blk, "_dense_layout", None)
+    if lay is not None:
+        hit = lay.get(key)
+        if hit is not None and all(a is b for a, b in zip(hit[0], arrays)):
+            return hit[1]
+    ok = _fits_int16(arrays)
+    if lay is not None:
+        lay[key] = (arrays, ok)
+    return ok
+
+
+def _narrow_inputs_ok(blk) -> bool:
+    """True when every PL/AD/GT input value fits the int16 narrow range
+    (remaps are permutations + sentinels, so the input range bounds the
+    output range); pallas_combine._narrow_inputs_ok."""
+    return _range_check(blk, "_torch_narrow_ok", ("pl", "ad", "gt"))
+
+
+def _narrow_scalars_ok(blk) -> bool:
+    """True when the GQ/DP/MIN_DP values fit int16 (masked
+    passthroughs); pallas_combine._narrow_scalars_ok."""
+    return _range_check(blk, "_torch_narrow_scalars_ok",
+                        ("gq", "dp", "min_dp"))
 
 
 @lru_cache(maxsize=32)
@@ -71,7 +136,8 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
                        dp_info, info_f, info_i, info_fs, live, inv_bs,
                        nr_bs, rec_num_merged, rec_has_nr, gt_len_bs=None,
                        *, max_merged: int, ploidy: int,
-                       gt_phase: bool = False, mixed: bool = False
+                       gt_phase: bool = False, mixed: bool = False,
+                       narrow: bool = False, narrow_scalars: bool = False
                        ) -> Dict[str, torch.Tensor]:
     """Live-cell gather + PL/AD/GT remap + masked passthroughs.
 
@@ -80,14 +146,22 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
     int32, rec_has_nr [B] bool, gt_len_bs [B, S] int32 (mixed only).
     Returns pl [B, S, G_out], ad [B, S, M], gt [B, S, gt_w], gq /
     dp_format / min_dp / dp_info [B, S], info_f / info_i / info_fs
-    [F, B, S].  CPU tensors run the plain twin; CUDA tensors launch the
-    kernel and count the launch in `fused_gather_remap.launches`."""
+    [F, B, S], int32 (float32 for info_f / info_fs).  With `narrow`,
+    pl / ad / gt are int16 with the BCF16 sentinels (`to16`), and with
+    `narrow_scalars` so are gq / dp_format / min_dp; the caller must
+    have checked the value range (`_narrow_inputs_ok`,
+    `_narrow_scalars_ok`).  CPU tensors run the plain twin; CUDA tensors
+    launch the kernel and count the launch in
+    `fused_gather_remap.launches` (and the narrow ones also in
+    `fused_gather_remap.narrow_launches`)."""
+    if narrow_scalars and not narrow:
+        raise ValueError("narrow_scalars needs narrow")
     dev = live.device
     args = (pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
             info_i, info_fs, live, inv_bs, nr_bs, rec_num_merged,
             rec_has_nr, gt_len_bs)
     kw = dict(max_merged=max_merged, ploidy=ploidy, gt_phase=gt_phase,
-              mixed=mixed)
+              mixed=mixed, narrow=narrow, narrow_scalars=narrow_scalars)
     if dev.type == "cpu":
         return fused_gather_remap_ref(*args, **kw)
     if dev.type != "cuda":
@@ -96,11 +170,13 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
 
 
 fused_gather_remap.launches = 0
+fused_gather_remap.narrow_launches = 0
 
 
 def _launch(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
             info_i, info_fs, live, inv_bs, nr_bs, rec_num_merged,
-            rec_has_nr, gt_len_bs, *, max_merged, ploidy, gt_phase, mixed):
+            rec_has_nr, gt_len_bs, *, max_merged, ploidy, gt_phase, mixed,
+            narrow, narrow_scalars):
     from ._kernel_build import load_library
     dev = live.device
     S, C, G_in = pl.shape
@@ -115,7 +191,7 @@ def _launch(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
                          f"{ploidy}, {M} merged alleles")
     if mixed and gt_len_bs is None:
         raise ValueError("mixed ploidy needs gt_len_bs")
-    i32, f32 = torch.int32, torch.float32
+    i16, i32, f32 = torch.int16, torch.int32, torch.float32
     for name, t, dt, shape in (
             ("pl", pl, i32, (S, C, G_in)), ("pl_len", pl_len, i32, (S, C)),
             ("ad", ad, i32, (S, C, A_in)), ("ad_len", ad_len, i32, (S, C)),
@@ -135,13 +211,15 @@ def _launch(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
     G_out = len(genotype_combo_table(M, ploidy))
     tables = torch.from_numpy(combo_tables(M, ploidy, bool(mixed))).to(dev)
     rec_nr = rec_has_nr.to(i32)
+    vt = i16 if narrow else i32            # PL / AD / GT
+    st = i16 if narrow_scalars else i32    # GQ / DP / MIN_DP
     out = {
-        "pl": torch.empty((B, S, G_out), dtype=i32, device=dev),
-        "ad": torch.empty((B, S, M), dtype=i32, device=dev),
-        "gt": torch.empty((B, S, gt_w), dtype=i32, device=dev),
-        "gq": torch.empty((B, S), dtype=i32, device=dev),
-        "dp_format": torch.empty((B, S), dtype=i32, device=dev),
-        "min_dp": torch.empty((B, S), dtype=i32, device=dev),
+        "pl": torch.empty((B, S, G_out), dtype=vt, device=dev),
+        "ad": torch.empty((B, S, M), dtype=vt, device=dev),
+        "gt": torch.empty((B, S, gt_w), dtype=vt, device=dev),
+        "gq": torch.empty((B, S), dtype=st, device=dev),
+        "dp_format": torch.empty((B, S), dtype=st, device=dev),
+        "min_dp": torch.empty((B, S), dtype=st, device=dev),
         "dp_info": torch.empty((B, S), dtype=i32, device=dev),
         "info_f": torch.empty((F, B, S), dtype=f32, device=dev),
         "info_i": torch.empty((Fi, B, S), dtype=i32, device=dev),
@@ -160,11 +238,16 @@ def _launch(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
             tables.data_ptr(),
             *[out[k].data_ptr() for k in _OUT_KEYS],
             B, S, C, G_in, A_in, gt_w, M, G_out, ploidy, F, Fi, Fs,
-            int(bool(gt_phase)), int(bool(mixed)), stream)
+            int(bool(gt_phase)), int(bool(mixed)), int(bool(narrow)),
+            int(bool(narrow_scalars)), stream)
     if rc != 0:
-        raise RuntimeError("fused_gather_remap kernel launch failed: "
+        mode = "narrow" if narrow else "wide"
+        raise RuntimeError(f"fused_gather_remap kernel launch ({mode}) "
+                           "failed: "
                            + kl.lib.gdb_cuda_error_string(rc).decode())
     fused_gather_remap.launches += 1
+    if narrow:
+        fused_gather_remap.narrow_launches += 1
     return out
 
 
@@ -172,45 +255,64 @@ def fused_gather_remap_ref(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
                            dp_info, info_f, info_i, info_fs, live, inv_bs,
                            nr_bs, rec_num_merged, rec_has_nr,
                            gt_len_bs=None, *, max_merged: int, ploidy: int,
-                           gt_phase: bool = False, mixed: bool = False
+                           gt_phase: bool = False, mixed: bool = False,
+                           narrow: bool = False,
+                           narrow_scalars: bool = False
                            ) -> Dict[str, torch.Tensor]:
     """Plain-torch twin of the kernel (same arguments, same outputs),
-    built from the general path's gather and remap math."""
+    built from the general path's gather and remap math; the narrow
+    outputs are `to16` of its int32 ones."""
     g = gather_on_device(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
                          dp_info, info_f, info_i, info_fs, live)
     pl_out, ad_out, gt_out = _remap_math(
         g["plg"], inv_bs, g["pllg"], nr_bs, g["adg"], g["adlg"], g["gtg"],
         rec_num_merged, rec_has_nr, gt_len_bs, max_merged=max_merged,
         ploidy=ploidy, gt_phase=gt_phase, mixed_ploidy=mixed)
-    return {"pl": pl_out, "ad": ad_out, "gt": gt_out, "gq": g["gqg"],
-            "dp_format": g["dpfg"], "min_dp": g["mdpg"],
-            "dp_info": g["dpig"], "info_f": g["infog"],
-            "info_i": g["infoig"], "info_fs": g["infofsg"]}
+    out = {"pl": pl_out, "ad": ad_out, "gt": gt_out, "gq": g["gqg"],
+           "dp_format": g["dpfg"], "min_dp": g["mdpg"],
+           "dp_info": g["dpig"], "info_f": g["infog"],
+           "info_i": g["infoig"], "info_fs": g["infofsg"]}
+    for k in (_NARROW_KEYS if narrow else ()) \
+            + (_SCALAR_KEYS if narrow_scalars else ()):
+        out[k] = to16(out[k])
+    return out
 
 
 def _fused_post(k: Dict[str, torch.Tensor], del_rw: torch.Tensor,
-                live: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Kernel outputs -> the combine_step output dict: INFO rows of
-    spanning-deletion-rewritten calls are masked, then the cross-sample
-    reductions run in plain torch."""
+                live: torch.Tensor, med_rows=None) -> Dict[str, torch.Tensor]:
+    """Kernel outputs -> the combine_step output dict
+    (pallas_combine._fused_post): INFO rows of spanning-deletion-
+    rewritten calls are masked, then the cross-sample reductions run in
+    plain torch, over the `med_rows` rows only when given.  Narrow
+    GQ/DP/MIN_DP feed the DP sum as widened copies and stay int16 in the
+    result, for the fetch pack."""
     iok = ~del_rw[None]                              # [1, B, S]
     infog = torch.where(iok, k["info_f"], float("nan"))
     infoig = torch.where(iok, k["info_i"], INT_MISSING)
     infofsg = torch.where(iok, k["info_fs"], float("nan"))
-    res = _reduce_math(k["gq"], k["dp_format"], k["min_dp"], k["dp_info"],
-                       infog, infoig, infofsg, live >= 0)
+    infog, infoig, infofsg, med_valid = _restrict_rows(
+        infog, infoig, infofsg, live >= 0, med_rows)
+    scalars = [k[key] for key in _SCALAR_KEYS]
+    narrow_scalars = scalars[0].dtype == torch.int16
+    wide = [widen16(x) for x in scalars] if narrow_scalars else scalars
+    res = _reduce_math(*wide, k["dp_info"], infog, infoig, infofsg,
+                       med_valid)
+    res.update(zip(_SCALAR_KEYS, scalars))
     res.update({"pl": k["pl"], "ad": k["ad"], "gt": k["gt"], "live": live})
     return res
 
 
 def combine_step_fused(blk, device, *, max_merged: int, ploidy: int,
-                       gt_phase: bool = False, mixed_ploidy: bool = False
+                       gt_phase: bool = False, mixed_ploidy: bool = False,
+                       med_rows=None, narrow_out: bool = False
                        ) -> Optional[Dict[str, torch.Tensor]]:
     """The combine of one CellBlock through the kernel (its twin on the
     CPU) and the torch reductions.  Returns None for a block the kernel
     does not take — the gates of the JAX combine_step_fused: empty
     blocks, ploidy above 6, more than 16 merged alleles, mixed ploidy
-    without stored GT lengths."""
+    without stored GT lengths.  `narrow_out` asks for the narrow form,
+    which the block gets when its values fit int16 (else the wide one);
+    `med_rows` restricts the INFO reductions to those rows."""
     B, S = np.asarray(blk.live).shape
     if S == 0 or B == 0 or ploidy > MAX_PLOIDY or max_merged > MAX_MERGED:
         return None
@@ -219,6 +321,7 @@ def combine_step_fused(blk, device, *, max_merged: int, ploidy: int,
     if blk.inv_bs.shape[2] != max_merged:
         raise ValueError(f"block has {blk.inv_bs.shape[2]} merged-allele "
                          f"LUT columns, max_merged is {max_merged}")
+    narrow = bool(narrow_out) and _narrow_inputs_ok(blk)
     t = block_to_tensors(blk, device)
     cells, (inv_bs, nr_bs, rec_nm, has_nr, live, del_rw, gt_lens) = \
         t[:12], t[12:]
@@ -227,28 +330,37 @@ def combine_step_fused(blk, device, *, max_merged: int, ploidy: int,
         nr_bs.to(torch.int32), rec_nm.to(torch.int32), has_nr,
         gt_lens.to(torch.int32) if mixed_ploidy else None,
         max_merged=max_merged, ploidy=ploidy, gt_phase=gt_phase,
-        mixed=mixed_ploidy)
-    return _fused_post(k, del_rw, live.to(torch.int32))
+        mixed=mixed_ploidy, narrow=narrow,
+        narrow_scalars=narrow and _narrow_scalars_ok(blk))
+    return _fused_post(k, del_rw, live.to(torch.int32), med_rows)
 
 
 def combine_block(blk, device, *, max_merged: int, ploidy: int,
-                  gt_phase: bool = False, mixed_ploidy: bool = False
+                  gt_phase: bool = False, mixed_ploidy: bool = False,
+                  med_rows=None, narrow_out: bool = False
                   ) -> Dict[str, torch.Tensor]:
     """The block engine's device combine: combine_step_fused where its
     gates allow, else the general combine_step on the same device.
-    Counts every block in `combine_block.blocks` and the general-path
-    ones in `combine_block.general_path_blocks`."""
+    Counts every block in `combine_block.blocks`, the general-path ones
+    in `combine_block.general_path_blocks`, and the kernel blocks that
+    asked for the narrow form but took the wide one (values past the
+    int16 range) in `combine_block.wide_blocks_when_packing`."""
     combine_block.blocks += 1
     out = combine_step_fused(blk, device, max_merged=max_merged,
                              ploidy=ploidy, gt_phase=gt_phase,
-                             mixed_ploidy=mixed_ploidy)
+                             mixed_ploidy=mixed_ploidy, med_rows=med_rows,
+                             narrow_out=narrow_out)
     if out is None:
         combine_block.general_path_blocks += 1
         out = combine_step(*block_to_tensors(blk, device),
-                           max_merged=max_merged, ploidy=ploidy,
-                           gt_phase=gt_phase, mixed_ploidy=mixed_ploidy)
+                           med_rows=med_rows, max_merged=max_merged,
+                           ploidy=ploidy, gt_phase=gt_phase,
+                           mixed_ploidy=mixed_ploidy)
+    elif narrow_out and out["pl"].dtype != torch.int16:
+        combine_block.wide_blocks_when_packing += 1
     return out
 
 
 combine_block.blocks = 0
 combine_block.general_path_blocks = 0
+combine_block.wide_blocks_when_packing = 0

@@ -12,10 +12,18 @@ the plan cannot realize splice maximal runs of the sequential engine.
 A copy, not an import, because the original imports jax.  Only the
 device section of `render_block_vcf_pipelined` differs: the combine is
 `fused_combine.combine_block` on an explicit torch device (the CUDA
-kernel where its gates allow, the general torch combine otherwise), and
-the fetch is `.cpu().numpy()` of every output.  The JAX package's mesh,
-dense-gather and fetch-pack branches are not ported.  The host render
-below the device section is unchanged.
+kernel where its gates allow, the general torch combine otherwise), with
+the INFO reductions restricted to `meta.med_rows`.  The fetch is the
+JAX package's pack (`pack` on, the default on a CUDA device): the
+kernel writes PL/AD/GT (and GQ/DP/MIN_DP) as int16, the device packs
+the variant rows and the small outputs into one blob whose copy to
+pinned host memory starts before the previous chunk renders, and the
+host widens it and rebuilds the ref-block rows (the shared native
+`identity_outputs`).  With `pack` off (the default on the CPU device)
+every output is fetched whole with `.cpu().numpy()`.  The JAX package's
+mesh and dense-gather branches and its CPU-device `remap_rows`
+restriction are not ported.  The host render below the device section
+is unchanged.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from genomicsdb_tpu.runtime import native_loader
 from genomicsdb_tpu.store.columnar import ColumnarStore
 from genomicsdb_tpu.vcf.fasta import ReferenceGenome
 
+from ..ops.combine_step import (fetch_outputs, fetch_outputs_split,
+                                host_identity_outputs, pack_outputs)
 from ..ops.fused_combine import combine_block
 from ..ops.store_block import store_to_block
 
@@ -71,13 +81,20 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
                                pad_records: Optional[int] = None,
                                pad_cells_to: int = 1,
                                filter_name_by_field_idx=None,
-                               coalesce: bool = False):
+                               coalesce: bool = False,
+                               pack: Optional[bool] = None):
     """Combined records for `interval`, combined on `device` (a
     torch.device), as a two-phase generator: the first next() builds
-    the block and launches the device combine (asynchronous on a CUDA
-    device); the second next() fetches outputs and returns the text
-    lines.  Callers overlap chunk k+1's launch with chunk k's render
-    (the device computes while the host formats).
+    the block, launches the device combine (asynchronous on a CUDA
+    device) and starts the packed fetch; the second next() fetches
+    outputs and returns the text lines.  Callers overlap chunk k+1's
+    launch with chunk k's render (the device computes while the host
+    formats).
+
+    `pack` (None: on for a CUDA device, off otherwise) selects the
+    narrow kernel and the packed, variant-row fetch.  Counts the blocks
+    whose fetch took the variant-row split in
+    `render_block_vcf_pipelined.split_blocks`.
 
     `sequential_fn(lo, hi) -> List[str]`: maximal runs of records the
     plan cannot realize are rendered by the sequential engine over
@@ -93,14 +110,87 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
     mixed_ploidy = bool(blk.gt_len_bs is not None
                         and not (((blk.gt_len_bs == gt_w)
                                   | (blk.live < 0)).all()))
+    pack_on = device.type == "cuda" if pack is None else bool(pack)
+    # INFO median/sum restriction: only rows with any valid input
+    # (meta.med_rows) enter the cross-sample sorts; bucket-padded
+    # (repeating row 0) as the JAX writer does
+    med_rows_p = None
+    mr = meta.med_rows
+    B0 = blk.live.shape[0]
+    if mr is not None and B0 and len(mr) < (3 * B0) // 4:
+        bucket = 8
+        while bucket < len(mr):
+            bucket *= 2
+        med_rows_p = np.zeros(bucket, np.int32)
+        med_rows_p[:len(mr)] = mr
+    # with the pack on, the kernel writes PL/AD/GT (and GQ/DP/MIN_DP)
+    # already narrowed to int16, so no device re-narrow pass follows
     out = combine_block(blk, device, max_merged=max_merged, ploidy=ploidy,
-                        gt_phase=plan.gt_phase, mixed_ploidy=mixed_ploidy)
+                        gt_phase=plan.gt_phase, mixed_ploidy=mixed_ploidy,
+                        med_rows=med_rows_p, narrow_out=pack_on)
+    # the fetch pack: narrowed outputs in one device blob, holding only
+    # the variant rows when ref-block-only records are at least a
+    # quarter of the block (the host rebuilds those from block data it
+    # holds); pack_outputs starts the blob's copy to the host now, so it
+    # overlaps the previous chunk's render
+    packed = split = None
+    if pack_on:
+        ref_mask = meta.is_ref_block_only
+        var_rows = np.nonzero(~ref_mask)[0]
+        ref_rows = np.nonzero(ref_mask)[0]
+        if len(ref_rows) >= max(len(ref_mask) // 4, 1):
+            packed = pack_outputs(out, rows=var_rows)
+            split = (var_rows, ref_rows)
+            render_block_vcf_pipelined.split_blocks += 1
+        else:
+            packed = pack_outputs(out)
     # `live` is a host-computed input and is never fetched
     live = np.asarray(blk.live)
     yield
-    dev = {k: v.cpu().numpy() for k, v in out.items() if k != "live"}
+    if split is not None:
+        var_rows, ref_rows = split
+        widths = (out["pl"].shape[-1], out["ad"].shape[-1],
+                  out["gt"].shape[-1])
+        # rebuild only rows with any live cell: records without one
+        # (bucket padding included) are never rendered, and the 2-D
+        # presence columns are MISSING-filled in fetch_outputs_split
+        ref_emitted = ref_rows[(live[ref_rows] >= 0).any(axis=1)]
+        gtl_r = np.asarray(blk.gt_len_bs)[ref_emitted] \
+            if mixed_ploidy else None
+
+        def ident(full):
+            """full given: native scatter of the ref-row identity
+            passthrough straight into the full-size arrays; None: the
+            dict form (host_identity_outputs)."""
+            if full is None:
+                return host_identity_outputs(blk, ref_emitted, widths,
+                                             plan.gt_phase, mixed_ploidy)
+            return native_loader.identity_outputs(
+                live[ref_emitted], blk.pl, blk.pl_len, blk.ad,
+                blk.ad_len, blk.gt, blk.gq, blk.dp, blk.min_dp, gtl_r,
+                widths, blk.ploidy, plan.gt_phase, mixed_ploidy,
+                out=full, dest_rows=ref_emitted) is not None
+
+        dev = fetch_outputs_split(out, packed, var_rows, ref_emitted,
+                                  ident)
+    else:
+        dev = fetch_outputs({k: v for k, v in out.items() if k != "live"},
+                            packed)
     dev["live"] = live
     B, S = live.shape
+    if med_rows_p is not None:
+        # scatter the row-restricted INFO reductions back to full
+        # width; rows outside med_rows read ok=False, exactly what
+        # full-width computation gives at rows with no valid input
+        n_med = len(mr)
+        for key in ("info_median", "info_imedian", "info_fsum"):
+            v, okk = dev[key], dev[key + "_ok"]
+            fullv = np.zeros((v.shape[0], B), v.dtype)
+            fullo = np.zeros((okk.shape[0], B), dtype=bool)
+            fullv[:, mr] = v[:, :n_med]
+            fullo[:, mr] = okk[:, :n_med]
+            dev[key] = fullv
+            dev[key + "_ok"] = fullo
     live_ok = live >= 0
     starts = blk.starts
     # ---------------- record plan: block vs splice runs ----------------
@@ -405,6 +495,9 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
         else:
             lines.extend(sequential_fn(item[1], item[2]))
     yield lines
+
+
+render_block_vcf_pipelined.split_blocks = 0
 
 
 def _strs_to_col(strings: List, dot_is_empty: bool = False):

@@ -11,6 +11,8 @@ out-of-core store from its memory-mapped view).
 
 from __future__ import annotations
 
+from typing import Optional
+
 from genomicsdb_tpu.core.config import INT64_MAX, QueryConfig, QueryParams
 from genomicsdb_tpu.core.vid import VidMapper
 from genomicsdb_tpu.query.driver import make_query_config, run_vcf_query
@@ -24,13 +26,17 @@ from .block_writer import render_block_vcf_pipelined
 def run_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
                         vid: VidMapper, device, template_path=None,
                         reference_path=None, max_merged: int = 4,
-                        max_records_per_block: int = 65536) -> str:
+                        max_records_per_block: int = 65536,
+                        pack: Optional[bool] = None) -> str:
     """--produce-Broad-GVCF via the batched device pipeline on `device`.
-    Byte-identical to the sequential `run_vcf_query`."""
+    Byte-identical to the sequential `run_vcf_query`.  `pack` (None: on
+    for a CUDA device) selects the narrow kernel and the packed fetch
+    (block_writer.render_block_vcf_pipelined)."""
     out_lines = list(iter_vcf_query_block(
         store, qc, qp, vid, device, template_path=template_path,
         reference_path=reference_path, max_merged=max_merged,
-        max_records_per_block=max_records_per_block, coalesce=True))
+        max_records_per_block=max_records_per_block, coalesce=True,
+        pack=pack))
     if not out_lines:
         return ""
     return "\n".join(out_lines) + "\n"
@@ -40,7 +46,8 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
                          vid: VidMapper, device, template_path=None,
                          reference_path=None, max_merged: int = 4,
                          max_records_per_block: int = 65536,
-                         coalesce: bool = False):
+                         coalesce: bool = False,
+                         pack: Optional[bool] = None):
     """Lazy form of run_vcf_query_block: yields header + record lines
     chunk by chunk (record-aligned blocks)."""
     ref_genome = ReferenceGenome(reference_path) if reference_path else None
@@ -55,12 +62,13 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
     for iv in intervals:
         yield from _iter_interval_blocks(
             store, iv, qc, qp, vid, device, ref_genome, reference_path,
-            filter_names, max_merged, max_records_per_block, coalesce)
+            filter_names, max_merged, max_records_per_block, coalesce,
+            pack)
 
 
 def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
                           reference_path, filter_names, max_merged,
-                          max_records_per_block, coalesce):
+                          max_records_per_block, coalesce, pack):
     """Record lines of ONE interval — the chunked, pipelined block-engine
     body."""
 
@@ -118,7 +126,7 @@ def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
             store, qc, vid, civ, device, ref_genome=ref_genome,
             max_merged=max_merged, sequential_fn=make_seq_fn(),
             filter_name_by_field_idx=filter_names, coalesce=coalesce,
-            **pad_kw)
+            pack=pack, **pad_kw)
         next(g)
         if pending is not None:
             yield from next(pending)

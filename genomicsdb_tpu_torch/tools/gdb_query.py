@@ -6,6 +6,9 @@ Usage:
 
 Takes the JAX tool's arguments (its parser and context loading are
 jax-free and reused) plus `--device`, the counterpart of `--platform`.
+The fetch pack is on by default on a CUDA device and off on the CPU;
+callers of `main` / `run_rank` (tests, chip_smoke.py) force it with the
+`pack` keyword.
 `--produce-Broad-GVCF` with the block engine (the default) runs the
 port's driver on that device; the other query modes and
 `--engine sequential` are host-only and run the JAX tool's own
@@ -49,10 +52,10 @@ def _refuse(args) -> None:
                          "stream) is not supported on the port")
 
 
-def run_rank(args, rank: int, device) -> str:
+def run_rank(args, rank: int, device, pack=None) -> str:
     """One rank's output text: the block-engine combined gVCF on
-    `device`, or the JAX tool's host-only branches for everything
-    else."""
+    `device` (`pack` as in driver.run_vcf_query_block), or the JAX
+    tool's host-only branches for everything else."""
     if not (args.produce_Broad_GVCF and args.engine == "block"
             and not args.java_vcf):
         return jax_tool.run_rank(args, rank)
@@ -74,10 +77,10 @@ def run_rank(args, rank: int, device) -> str:
         and not args.no_vcf_header else None
     return tdriver.run_vcf_query_block(store, qc, qp, vid, device,
                                        template_path=tmpl,
-                                       reference_path=refg)
+                                       reference_path=refg, pack=pack)
 
 
-def main(argv=None):
+def main(argv=None, *, pack=None):
     p = _build_parser()
     args = p.parse_args(argv)
     if not args.query_json and not args.query_pb:
@@ -86,7 +89,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     import json as _json
     try:
-        pieces = [run_rank(args, r, device)
+        pieces = [run_rank(args, r, device, pack)
                   for r in range(args.rank, args.rank + args.num_ranks)]
     except FileNotFoundError as e:
         raise SystemExit(f"gdb_query: file not found: {e.filename or e}")

@@ -1,6 +1,7 @@
-"""The port on an NVIDIA card: the CUDA kernel against its plain twin
-(bit-exact, cells with no live call included) and one block query on
-the card against the same query on the CPU.
+"""The port on an NVIDIA card: the CUDA kernel in its wide and narrow
+forms against its plain twin (bit-exact, cells with no live call
+included), and block queries on the card, with the fetch pack on and
+off, against the same query on the CPU.
 
 Marked `gpu`; each test skips where torch sees no CUDA card (decided in
 the `cuda` fixture, never at import).  On a machine with a card:
@@ -48,20 +49,25 @@ def _block(S, C, R, m, p, mixed, seed):
     return blk
 
 
-@pytest.mark.parametrize("S,C,R,m,p,mixed", [
-    (64, 256, 16384, 4, 2, False), (16, 64, 4096, 16, 2, False),
-    (8, 64, 4096, 4, 6, False), (16, 64, 4096, 16, 3, True),
-    (8, 48, 4096, 4, 6, True)])
-def test_kernel_matches_twin(cuda, S, C, R, m, p, mixed):
+SHAPES = [(64, 256, 16384, 4, 2, False), (16, 64, 4096, 16, 2, False),
+          (8, 64, 4096, 4, 6, False), (16, 64, 4096, 16, 3, True),
+          (8, 48, 4096, 4, 6, True)]
+
+
+def _check_kernel(cuda, S, C, R, m, p, mixed, **mode):
     blk = _block(S, C, R, m, p, mixed, seed=S + m + p)
     t = TC.block_to_tensors(blk, cuda)
     args = (*t[:12], t[16], t[12], t[13], t[14], t[15],
             t[18] if mixed else None)
-    kw = dict(max_merged=m, ploidy=p, gt_phase=mixed, mixed=mixed)
-    before = FC.fused_gather_remap.launches
+    kw = dict(max_merged=m, ploidy=p, gt_phase=mixed, mixed=mixed, **mode)
+    before = (FC.fused_gather_remap.launches,
+              FC.fused_gather_remap.narrow_launches)
     got = FC.fused_gather_remap(*args, **kw)
     torch.cuda.synchronize()
-    assert FC.fused_gather_remap.launches == before + 1
+    narrow = int(mode.get("narrow", False))
+    assert (FC.fused_gather_remap.launches,
+            FC.fused_gather_remap.narrow_launches) == (before[0] + 1,
+                                                        before[1] + narrow)
     ref = FC.fused_gather_remap_ref(*args, **kw)
     for key, r in ref.items():
         g = got[key]
@@ -71,6 +77,18 @@ def test_kernel_matches_twin(cuda, S, C, R, m, p, mixed):
         assert torch.equal(g, r), key
 
 
+@pytest.mark.parametrize("S,C,R,m,p,mixed", SHAPES)
+def test_kernel_matches_twin(cuda, S, C, R, m, p, mixed):
+    _check_kernel(cuda, S, C, R, m, p, mixed)
+
+
+@pytest.mark.parametrize("scalars", [True, False])
+@pytest.mark.parametrize("S,C,R,m,p,mixed", SHAPES)
+def test_narrow_kernel_matches_twin(cuda, S, C, R, m, p, mixed, scalars):
+    _check_kernel(cuda, S, C, R, m, p, mixed, narrow=True,
+                  narrow_scalars=scalars)
+
+
 def test_block_query_on_the_card(cuda, tmp_path):
     from genomicsdb_tpu.tools import vcf2gdb
     from genomicsdb_tpu_torch.testing import write_cohort
@@ -78,17 +96,49 @@ def test_block_query_on_the_card(cuda, tmp_path):
     c = write_cohort(str(tmp_path), 40, 300, seed=2)
     vcf2gdb.main([c.loader])
 
-    def run(device):
+    def run(device, pack=None):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             gdb_query.main(["-j", c.query, "--produce-Broad-GVCF",
-                            "--device", device])
+                            "--device", device], pack=pack)
         return buf.getvalue()
 
     FC.fused_gather_remap.launches = 0
+    FC.fused_gather_remap.narrow_launches = 0
     FC.combine_block.blocks = 0
     FC.combine_block.general_path_blocks = 0
-    on_card = run("cuda")
+    on_card = run("cuda", pack=False)
     assert FC.fused_gather_remap.launches == FC.combine_block.blocks > 0
+    assert FC.fused_gather_remap.narrow_launches == 0
     assert FC.combine_block.general_path_blocks == 0
     assert on_card and on_card == run("cpu")
+
+
+def test_packed_block_query_on_the_card(cuda, tmp_path):
+    """The card's default: the narrow kernel on every block, the packed
+    variant-row fetch through pinned memory; the text equals the CPU
+    device's."""
+    from genomicsdb_tpu.tools import vcf2gdb
+    from genomicsdb_tpu_torch.query import block_writer as BW
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query
+    c = write_cohort(str(tmp_path), 40, 300, seed=2)
+    vcf2gdb.main([c.loader])
+
+    def run(device, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gdb_query.main(["-j", c.query, "--produce-Broad-GVCF",
+                            "--device", device], **kw)
+        return buf.getvalue()
+
+    FC.fused_gather_remap.narrow_launches = 0
+    FC.combine_block.blocks = 0
+    FC.combine_block.wide_blocks_when_packing = 0
+    BW.render_block_vcf_pipelined.split_blocks = 0
+    on_card = run("cuda")
+    assert FC.fused_gather_remap.narrow_launches \
+        == FC.combine_block.blocks > 0
+    assert FC.combine_block.wide_blocks_when_packing == 0
+    assert BW.render_block_vcf_pipelined.split_blocks > 0
+    assert on_card and on_card == run("cpu") == run("cpu", pack=True)
