@@ -12,17 +12,21 @@ Every phase passes or the script exits non-zero:
   1. Environment: the card, its power limit, the CUDA, torch and nvcc
      versions; builds the CUDA kernel library from csrc/ (build time and
      the ptxas report) and the native text library.
-  2. The CUDA kernel in both forms (wide: int32 outputs; narrow: int16
-     PL/AD/GT/GQ/DP/MIN_DP with the BCF16 sentinels) against its plain
-     torch twin on the card, bit-exact over every output (cells with no
-     live call included), at the synthetic shapes 128 samples x 2048
-     cells x 262,144 positions (m 4, diploid), 1024 x 256 x 32,768, and
-     a mixed-ploidy phased block with 16 merged alleles; times from CUDA
-     events, in the order twin wide, twin narrow, kernel wide, kernel
-     narrow, then the same backwards.
+  2. The CUDA kernel in its three forms (wide: int32 outputs; narrow:
+     int16 PL/AD/GT; narrow+scalars: GQ/DP/MIN_DP int16 too, with the
+     BCF16 sentinels) against its plain torch twin on the card,
+     bit-exact over every output (cells with no live call included), at
+     the synthetic shapes 128 samples x 2048 cells x 262,144 positions
+     (m 4, diploid), 1024 x 256 x 32,768, a mixed-ploidy phased block
+     with 16 merged alleles, a block whose records and samples are not
+     multiples of the kernel's tile, and a mixed block at 16 merged
+     alleles and ploidy up to 6 (54,264 genotypes: PL in chunks); times
+     twins then kernels, then the same backwards, with each launch's
+     bytes and byte bound.
   3. End to end through the entry points: a seeded 1,000-sample gVCF
-     cohort is written, imported with `genomicsdb_tpu.tools.vcf2gdb`
-     (its `main`, in this process: jax is blocked for the whole run),
+     cohort is written, imported with the port's
+     `genomicsdb_tpu_torch.tools.vcf2gdb` (its `main`, in this process:
+     jax and genomicsdb_tpu are blocked for the whole run),
      and queried with the port's `gdb_query --produce-Broad-GVCF`
      (block engine) on `--device cuda` with the fetch pack on (the
      card's default: narrow kernel, packed variant-row fetch; cold, then
@@ -33,6 +37,16 @@ Every phase passes or the script exits non-zero:
      over the cohort's first records must equal the sequential
      engine's.  The bytes each fetch mode copied to the host are
      printed.
+  4. The main path's kernel launches: one more warm query records the
+     shape (B, S, C, G_in, A_in, M, G_out, gt_w, F, Fi, Fs, form), bytes
+     and byte bound of every launch; the largest launch's inputs (the
+     store-wide slabs) are held against the twin in all three forms and
+     timed.
+
+Times are CUDA events around back-to-back calls after a warm-up.  A
+kernel's time is that of launches bound once (only a ctypes call between
+two launches); the wrapper's call time (checks, plan and allocations
+included) is printed beside it; the twin's is that of its calls.
 
 The last lines are the kernel JSON, the card's name and power limit,
 and `{"ok": true, "device": {...}}`.
@@ -56,6 +70,10 @@ KERNEL_SOURCE = "genomicsdb_tpu_torch/csrc/fused_gather_remap.cu"
 # narrow form, and _make_kernel (the wide, non-mixed function)
 PALLAS = "genomicsdb_tpu/ops/pallas_combine.py"
 E2E_SAMPLES, E2E_RECORDS = 1000, 4000
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+# the kernel's forms: (narrow, narrow_scalars)
+FORMS = {"wide": (False, False), "narrow": (True, False),
+         "narrow+scalars": (True, True)}
 
 
 def _run(cmd) -> str:
@@ -64,7 +82,7 @@ def _run(cmd) -> str:
 
 
 def phase_environment(torch):
-    from genomicsdb_tpu.runtime import native_loader
+    from genomicsdb_tpu_torch.runtime import native_loader
     from genomicsdb_tpu_torch.ops._kernel_build import load_library, _nvcc
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"])
@@ -76,14 +94,37 @@ def phase_environment(torch):
     kl = load_library()
     print(f"kernel library {os.path.relpath(kl.path, ROOT)}: built in "
           f"{kl.build_seconds:.2f} s")
-    for line in kl.ptxas_log.splitlines():
-        if "ptxas" in line:
-            print("  " + line.strip())
+    for line in _ptxas_summary(kl.ptxas_log):
+        print("  " + line)
     t0 = time.perf_counter()
     if native_loader.get_lib() is None:
         raise RuntimeError("native text library did not build")
     print(f"native text library ready in {time.perf_counter() - t0:.2f} s")
     return card.splitlines()[0]
+
+
+def _ptxas_summary(log):
+    """One line per kernel instantiation of nvcc's -Xptxas -v report:
+    its output widths and path, registers, stack frame and spills."""
+    import re
+    width = {"i": "int32", "s": "int16"}
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*fused_gather_remap_kernelI"
+                      r"([is])([is])Li(\d+)E", line)
+        if m:
+            vt, st, dm = m.groups()
+            path = f"diploid, M <= {dm}" if dm != "0" else "general"
+            name = (f"PL/AD/GT {width[vt]}, GQ/DP/MIN_DP {width[st]}, "
+                    f"{path}")
+            frame = "stack frame not reported"
+        elif name and "stack frame" in line:
+            frame = line.strip()
+        elif name and "Used" in line:
+            out.append(f"ptxas [{name}]: {line.split(':', 1)[1].strip()}; "
+                       f"{frame}")
+            name = None
+    return out
 
 
 def _kernel_inputs(blk, dev, mixed):
@@ -104,6 +145,15 @@ def _time_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _kernel_ms(torch, args, kw, reps):
+    """The kernel's time per launch: CUDA events around `reps` launches
+    bound once (`fused_combine._prepare`), after a warm-up, so that only
+    a ctypes call stands between two launches.  Not counted."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    _, launch = FC._prepare(*args, **kw)
+    return _time_ms(torch, launch, reps)
 
 
 def _bits(torch, x):
@@ -130,86 +180,167 @@ def _check_against_twin(torch, label, got, twin) -> int:
     return err
 
 
-def phase_kernel_vs_twin(torch, np, dev):
-    """Returns {mode: (max_abs_err, kernel_ms, twin_ms)} of the
-    production-shape case for the wide and the narrow form, after
-    checking every case bit for bit in both."""
+def _launch_bytes(torch, args, kw):
+    """(bytes, distinct live cells) of one launch: each distinct live
+    cell's fields read once (of its PL and AD rows only the entries
+    below its PL and AD lengths, all that the kernel reads), the
+    per-(record, sample) LUT rows and the per-record counts read once,
+    every output written once."""
+    from genomicsdb_tpu_torch.ops.cell_block import genotype_combo_table
+    pl, pl_len, ad, ad_len, gt = args[:5]
+    info_f, info_i, info_fs, live = args[9:13]
+    S, C, G_in = pl.shape
+    B = live.shape[0]
+    M, mixed = kw["max_merged"], kw.get("mixed", False)
+    nf = info_f.shape[0] + info_i.shape[0] + info_fs.shape[0]
+    s_idx = torch.arange(S, device=live.device, dtype=torch.int64)[None]
+    key = torch.unique((s_idx * C + live.long())[live >= 0])
+    cells = int(key.numel())
+    rows = int(pl_len.reshape(-1)[key].clamp(0, G_in).sum()
+               + ad_len.reshape(-1)[key].clamp(0, ad.shape[2]).sum())
+    cell_bytes = 4 * rows + cells * 4 * (gt.shape[2] + 6 + nf)
+    lut = B * S * 4 * (2 + M + (1 if mixed else 0)) + 8 * B
+    G_out = len(genotype_combo_table(M, kw["ploidy"]))
+    ev = 2 if kw.get("narrow") else 4
+    es = 2 if kw.get("narrow_scalars") else 4
+    out = B * S * ((G_out + M + gt.shape[2]) * ev + 3 * es + 4 + 4 * nf)
+    return cell_bytes + lut + out, cells
+
+
+def _bound_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _synthetic_block(np, label, S, C, R, m, p, mixed, keep_b=None):
+    """A synthetic cohort block with 5% of (record, sample) cells
+    without a live call (LUTs -1, as the store path writes them),
+    optionally cut to its first `keep_b` records; mixed blocks carry a
+    phased GT layout and per-call GT lengths."""
     from genomicsdb_tpu_torch.ops import fused_combine as FC
     from genomicsdb_tpu_torch.ops.cell_block import synthesize_cohort
-    cases = [
-        # (label, samples, cells, region, max_merged, ploidy, mixed)
-        ("bench 128x2048x262144 m4 p2", 128, 2048, 262144, 4, 2, False),
-        ("wide 1024x256x32768 m4 p2", 1024, 256, 32768, 4, 2, False),
-        ("mixed phased 32x128x8192 m16 pmax3", 32, 128, 8192, 16, 3,
-         True),
-    ]
-    first = None
-    for label, S, C, R, m, p, mixed in cases:
-        blk = synthesize_cohort(S, C, R, seed=0, max_merged=m, ploidy=p)
-        rng = np.random.default_rng(1)
-        B, S = blk.live.shape
-        C = blk.col.shape[1]
-        # cells with no live call (LUTs -1, as the store path writes them)
-        drop = rng.random((B, S)) < 0.05
-        blk.live = np.where(drop, -1, blk.live).astype(np.int32)
-        blk.inv_bs = np.where(drop[..., None], -1, blk.inv_bs
-                              ).astype(np.int32)
-        blk.nr_bs = np.where(drop, -1, blk.nr_bs).astype(np.int32)
-        if mixed:
-            # phased storage: allele, phase, allele, phase, allele
-            gt = np.zeros((S, C, 2 * p - 1), np.int32)
-            gt[..., 0::2] = blk.gt
-            gt[..., 1::2] = rng.integers(0, 2, (S, C, p - 1))
-            blk.gt = gt
-            blk.gt_len_bs = np.where(
-                drop, 0, rng.integers(0, 2 * p, (B, S))).astype(np.int32)
-        if not (FC._narrow_inputs_ok(blk) and FC._narrow_scalars_ok(blk)):
-            raise AssertionError(f"{label}: the synthetic block does not "
-                                 "fit the narrow form")
-        args = _kernel_inputs(blk, dev, mixed)
-        base = dict(max_merged=m, ploidy=p, gt_phase=mixed, mixed=mixed)
-        modes = {"wide": base,
-                 "narrow": dict(base, narrow=True, narrow_scalars=True)}
-        errs = {}
-        for mode, kw in modes.items():
-            twin = FC.fused_gather_remap_ref(*args, **kw)
-            got = FC.fused_gather_remap(*args, **kw)
-            torch.cuda.synchronize()
-            errs[mode] = _check_against_twin(torch, f"{label} {mode}", got,
-                                             twin)
-            del twin, got
-        reps_k, reps_t = 20, 3
+    blk = synthesize_cohort(S, C, R, seed=0, max_merged=m, ploidy=p)
+    if keep_b is not None:
+        for name in ("inv_bs", "nr_bs", "starts", "rec_num_merged",
+                     "rec_has_nr", "live", "del_rw", "gt_len_bs"):
+            if getattr(blk, name) is not None:
+                setattr(blk, name, getattr(blk, name)[:keep_b])
+    rng = np.random.default_rng(1)
+    B, S = blk.live.shape
+    C = blk.col.shape[1]
+    drop = rng.random((B, S)) < 0.05
+    blk.live = np.where(drop, -1, blk.live).astype(np.int32)
+    blk.inv_bs = np.where(drop[..., None], -1, blk.inv_bs).astype(np.int32)
+    blk.nr_bs = np.where(drop, -1, blk.nr_bs).astype(np.int32)
+    if mixed:
+        # phased storage: allele, phase, allele, phase, allele
+        gt = np.zeros((S, C, 2 * p - 1), np.int32)
+        gt[..., 0::2] = blk.gt
+        gt[..., 1::2] = rng.integers(0, 2, (S, C, p - 1))
+        blk.gt = gt
+        blk.gt_len_bs = np.where(
+            drop, 0, rng.integers(0, 2 * p, (B, S))).astype(np.int32)
+    if not (FC._narrow_inputs_ok(blk) and FC._narrow_scalars_ok(blk)):
+        raise AssertionError(f"{label}: the synthetic block does not "
+                             "fit the narrow form")
+    return blk
 
-        def kern(mode):
-            return _time_ms(torch, lambda: FC.fused_gather_remap(
-                *args, **modes[mode]), reps_k)
 
-        def plain(mode):
-            return _time_ms(torch, lambda: FC.fused_gather_remap_ref(
-                *args, **modes[mode]), reps_t)
+def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, plan_kw=None):
+    """Holds the kernel against the twin in every form, bit for bit,
+    then times both with CUDA events (twins, kernels, kernels, twins).
+    Returns {form: (max_abs_err, kernel_ms, twin_ms, bytes)}."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    modes = {f: dict(base, narrow=n, narrow_scalars=ns)
+             for f, (n, ns) in FORMS.items()}
+    errs = {}
+    for mode, kw in modes.items():
+        twin = FC.fused_gather_remap_ref(*args, **kw)
+        got = FC.fused_gather_remap(*args, **kw)
+        torch.cuda.synchronize()
+        errs[mode] = _check_against_twin(torch, f"{label} {mode}", got,
+                                         twin)
+        del twin, got
 
-        t = {"twin wide": [plain("wide")], "twin narrow": [plain("narrow")],
-             "wide": [kern("wide")], "narrow": [kern("narrow")]}
-        t["narrow"].append(kern("narrow"))
-        t["wide"].append(kern("wide"))
-        t["twin narrow"].append(plain("narrow"))
-        t["twin wide"].append(plain("wide"))
-        res = {}
+    def kern(mode):
+        return _kernel_ms(torch, args, modes[mode], reps_k)
+
+    def plain(mode):
+        return _time_ms(torch, lambda: FC.fused_gather_remap_ref(
+            *args, **modes[mode]), reps_t)
+
+    t = {}
+    for fn, prefix in ((plain, "twin "), (kern, "")):
         for mode in modes:
-            k_ms = sum(t[mode]) / 2
-            twin_ms = sum(t["twin " + mode]) / 2
-            res[mode] = (errs[mode], k_ms, twin_ms)
-            print(f"kernel vs twin [{label}, {mode}]: B={B} S={S} "
-                  f"bit-exact (tolerance 0: every integer word and "
-                  f"float32 bit pattern equal, max abs err {errs[mode]}); "
-                  f"kernel {t[mode][0]:.4f}/{t[mode][1]:.4f} ms, twin "
-                  f"{t['twin ' + mode][0]:.4f}/{t['twin ' + mode][1]:.4f} "
-                  f"ms (mean kernel {k_ms:.4f}, twin {twin_ms:.4f})")
-        if first is None:
-            first = res
+            t[prefix + mode] = [fn(mode)]
+    for fn, prefix in ((kern, ""), (plain, "twin ")):
+        for mode in reversed(list(modes)):
+            t[prefix + mode].append(fn(mode))
+    res = {}
+    B, S = args[12].shape
+    for mode, kw in modes.items():
+        nbytes, cells = _launch_bytes(torch, args, kw)
+        k_ms = sum(t[mode]) / 2
+        twin_ms = sum(t["twin " + mode]) / 2
+        call_ms = _time_ms(torch, lambda: FC.fused_gather_remap(
+            *args, **kw), reps_k)
+        res[mode] = (errs[mode], k_ms, twin_ms, nbytes)
+        bound = _bound_ms(nbytes)
+        print(f"kernel vs twin [{label}, {mode}]: B={B} S={S} "
+              f"bit-exact (tolerance 0: every integer word and "
+              f"float32 bit pattern equal, max abs err {errs[mode]}); "
+              f"kernel {t[mode][0]:.4f}/{t[mode][1]:.4f} ms, "
+              f"twin {t['twin ' + mode][0]:.4f}/"
+              f"{t['twin ' + mode][1]:.4f} ms (mean kernel {k_ms:.4f}, "
+              f"twin {twin_ms:.4f}; wrapper call, host included, "
+              f"{call_ms:.4f}); {nbytes} bytes ({cells} distinct live "
+              f"cells), bound {bound:.4f} ms, {100 * bound / k_ms:.1f}% "
+              f"of it")
+    return res
+
+
+def phase_kernel_vs_twin(torch, np, dev):
+    """Checks every synthetic case bit for bit in every form, and times
+    it."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    from genomicsdb_tpu_torch.ops.cell_block import genotype_combo_table
+    cases = [
+        # (label, samples, cells, region, max_merged, ploidy, mixed,
+        #  records kept)
+        ("bench 128x2048x262144 m4 p2", 128, 2048, 262144, 4, 2, False,
+         None),
+        ("wide 1024x256x32768 m4 p2", 1024, 256, 32768, 4, 2, False,
+         None),
+        ("mixed phased 32x128x8192 m16 pmax3", 32, 128, 8192, 16, 3,
+         True, None),
+        ("ragged 999x128x16384 m4 p2, B 1001", 999, 128, 16384, 4, 2,
+         False, 1001),
+        ("mixed phased 4x16x512 m16 pmax6", 4, 16, 512, 16, 6, True, 120),
+    ]
+    for label, S, C, R, m, p, mixed, keep_b in cases:
+        blk = _synthetic_block(np, label, S, C, R, m, p, mixed, keep_b)
+        args = _kernel_inputs(blk, dev, mixed)
+        B, S = blk.live.shape
+        base = dict(max_merged=m, ploidy=p, gt_phase=mixed, mixed=mixed)
+        for form, (n, ns) in FORMS.items():
+            plan = FC.tile_plan(
+                B, S, m, len(genotype_combo_table(m, p)), blk.gt.shape[2],
+                blk.info_f.shape[0], blk.info_i.shape[0],
+                blk.info_fs.shape[0], mixed=mixed, narrow=n,
+                narrow_scalars=ns, n_sm=FC._sm_count(dev))
+            print(f"  tile plan [{label}, {form}]: {plan.tb} records x "
+                  f"{plan.ts} samples, {plan.n_tiles} tiles on "
+                  f"{plan.grid} blocks, {plan.n_chunks} PL pass(es) of "
+                  f"{plan.gc} genotypes, {plan.smem} bytes of shared "
+                  f"memory")
+        if label.startswith("ragged") and not (B % plan.tb
+                                                and S % plan.ts):
+            raise AssertionError(f"{label}: B and S must not be multiples "
+                                 "of the tile")
+        big = m == 16 and p == 6
+        _forms_vs_twin(torch, label, args, base, reps_k=3 if big else 20,
+                       reps_t=1 if big else 3)
         del args
         torch.cuda.empty_cache()
-    return first
 
 
 def _query(argv, pack=None) -> str:
@@ -257,7 +388,7 @@ def phase_end_to_end(torch, card):
     print(f"cohort: {E2E_SAMPLES} samples x {E2E_RECORDS} records per "
           f"file, {len(c.vcfs)} files, columns 0..{c.region}, written in "
           f"{time.perf_counter() - t0:.2f} s")
-    from genomicsdb_tpu.tools import vcf2gdb
+    from genomicsdb_tpu_torch.tools import vcf2gdb
     t0 = time.perf_counter()
     vcf2gdb.main([c.loader])
     print(f"import (vcf2gdb): {time.perf_counter() - t0:.2f} s")
@@ -321,6 +452,56 @@ def phase_end_to_end(torch, card):
     return c_on, c_off, c
 
 
+def phase_main_path(torch, c, card):
+    """Records every kernel launch of one more warm pack-on query (not
+    counted), then holds the largest launch's inputs against the twin in
+    every form and times them.  Returns ({form: (max_abs_err, kernel_ms,
+    twin_ms, bytes)} at that launch, the launches' total bytes per form
+    as launched)."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    argv = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]
+    seen = []
+    launch = FC._launch
+
+    def recorder(*args, **kw):
+        seen.append((args, kw))
+        return launch(*args, **kw)
+
+    FC._launch = recorder
+    try:
+        _query(argv)
+    finally:
+        FC._launch = launch
+    shapes = {}
+    total = 0
+    for args, kw in seen:
+        nbytes, cells = _launch_bytes(torch, args, kw)
+        total += nbytes
+        pl, live = args[0], args[12]
+        form = "narrow+scalars" if kw["narrow_scalars"] else \
+            "narrow" if kw["narrow"] else "wide"
+        key = (tuple(live.shape), pl.shape[1], pl.shape[2],
+               args[2].shape[2], kw["max_merged"], kw["ploidy"],
+               args[4].shape[2], args[9].shape[0], args[10].shape[0],
+               args[11].shape[0], form)
+        shapes.setdefault(key, []).append((nbytes, cells))
+    print(f"main path: {len(seen)} kernel launches, {total} bytes, "
+          f"bound {_bound_ms(total):.4f} ms in all [{card}]")
+    for (bs, C, G_in, A_in, M, p, gt_w, F, Fi, Fs, form), v in sorted(
+            shapes.items()):
+        print(f"  {len(v)} x B={bs[0]} S={bs[1]} C={C} G_in={G_in} "
+              f"A_in={A_in} M={M} ploidy={p} gt_w={gt_w} F={F} Fi={Fi} "
+              f"Fs={Fs} {form}: bytes "
+              f"{min(x[0] for x in v)}..{max(x[0] for x in v)}, distinct "
+              f"live cells {min(x[1] for x in v)}..{max(x[1] for x in v)}")
+    args, kw = max(seen, key=lambda a: a[0][12].numel())
+    base = {k: kw[k] for k in ("max_merged", "ploidy", "gt_phase",
+                               "mixed")}
+    B, S = args[12].shape
+    label = f"main-path launch B={B} S={S} C={args[0].shape[1]}"
+    return _forms_vs_twin(torch, label, args, base, reps_k=50, reps_t=3)
+
+
 def phase_profile(torch, c, card, out_dir):
     """torch.profiler over one warm query per fetch mode: device time
     by kind (copies each way, kernels) against the wall time; tables
@@ -374,9 +555,10 @@ def main() -> int:
               "(genomicsdb_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    # the port runs without jax: block it, so that no module on the path
-    # (the shared host modules of genomicsdb_tpu included) can load it
+    # the port stands alone: block jax and the JAX package, so that no
+    # module on any path can load either
     sys.modules["jax"] = None
+    sys.modules["genomicsdb_tpu"] = None
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -385,22 +567,26 @@ def main() -> int:
         return 1
     dev = torch.device("cuda:0")
     card = phase_environment(torch)
-    kern = phase_kernel_vs_twin(torch, np, dev)
+    phase_kernel_vs_twin(torch, np, dev)
     c_on, c_off, cohort = phase_end_to_end(torch, card)
+    main = phase_main_path(torch, cohort, card)
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))
 
-    def entry(name, replaces, mode, launches):
-        err, ms, plain_ms = kern[mode]
+    def entry(name, replaces, form, launches):
+        # times and bound at the main path's largest launch
+        err, ms, plain_ms, nbytes = main[form]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
         entry("fused_gather_remap (wide)", f"{PALLAS}:875", "wide",
               c_off["launches"]),
         entry("fused_gather_remap (narrow int16 outputs)",
-              f"{PALLAS}:1070", "narrow", c_on["narrow_launches"]),
+              f"{PALLAS}:1070", "narrow+scalars", c_on["narrow_launches"]),
         entry("fused_gather_remap (wide, non-mixed: the per-sample "
               "_make_kernel function)", f"{PALLAS}:264", "wide",
               c_off["launches"]),

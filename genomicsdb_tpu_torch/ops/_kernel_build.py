@@ -100,7 +100,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f = lib.gdb_fused_gather_remap
     f.restype = i32
-    # 19 inputs + 10 outputs, then B, S, C, 13 int dims/flags, stream
-    f.argtypes = [vp] * 29 + [i64] * 3 + [i32] * 13 + [vp]
+    # 19 inputs + 10 outputs, then B, S, C, 13 int dims/flags, the
+    # plan (host ints) and its length, stream
+    f.argtypes = [vp] * 29 + [i64] * 3 + [i32] * 13 + [vp, i32, vp]
     lib.gdb_cuda_error_string.restype = ctypes.c_char_p
     lib.gdb_cuda_error_string.argtypes = [i32]

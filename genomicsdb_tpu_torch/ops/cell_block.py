@@ -15,8 +15,8 @@ from functools import lru_cache
 
 import numpy as np
 
-from genomicsdb_tpu.core import formats
-from genomicsdb_tpu.ops import merge as M
+from ..core import formats
+from . import merge as M
 
 INT_MISSING = formats.INT_MISSING
 

@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from genomicsdb_tpu.core import formats
+from ..core import formats
 
 from . import torch_kernels as K
 from .cell_block import genotype_combo_table
@@ -488,7 +488,7 @@ def fetch_outputs_split(out: Dict[str, torch.Tensor], packed: Dict,
     the preallocated full arrays (the native scatter path), and returns
     the dict when called with None.  Reductions and int32 overflow
     fallbacks come back full."""
-    from genomicsdb_tpu.runtime import native_loader
+    from ..runtime import native_loader
     got, narrow = _fetch_blob_tree(
         {k: v for k, v in out.items() if k != "live"}, packed)
     B = out["live"].shape[0]
@@ -548,7 +548,7 @@ def host_identity_outputs(blk, rows: np.ndarray,
     merged index 1, phase slots untouched; GQ/DP/MIN_DP masked
     passthroughs.  The shared native `identity_outputs` computes it;
     the numpy form below runs without the native library."""
-    from genomicsdb_tpu.runtime import native_loader
+    from ..runtime import native_loader
     G_out, M_out, P_out = widths
     S = blk.live.shape[1]
     live = np.asarray(blk.live)[rows]

@@ -5,6 +5,10 @@ of `genomicsdb_tpu.ops.pallas_combine`).
                           (wide, or narrow: int16 outputs) for CUDA
                           tensors, runs the plain twin for CPU tensors,
                           raises for anything else
+  tile_plan               the kernel's tiles, genotype chunks, shared
+                          memory layout and grid for one launch
+  _prepare                one launch bound to its outputs (the wrapper
+                          and chip_smoke.py's timing call it)
   fused_gather_remap_ref  the plain twin (torch ops, any device)
   _narrow_inputs_ok,      the host range checks that allow the narrow
   _narrow_scalars_ok      form, cached on the store-wide layout
@@ -20,13 +24,15 @@ the kernel or the call raises.
 
 from __future__ import annotations
 
+import math
+from dataclasses import astuple, dataclass, fields
 from functools import lru_cache
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from genomicsdb_tpu.core import formats
+from ..core import formats
 
 from .cell_block import genotype_combo_table
 from .combine_step import (INT16_MISSING, INT16_VECTOR_END, _reduce_math,
@@ -102,22 +108,221 @@ def _narrow_scalars_ok(blk) -> bool:
                         ("gq", "dp", "min_dp"))
 
 
+TERM_ROWS = 64          # the term table's allele rows (kTermRows)
+_HEADER_INTS = 2 * (MAX_PLOIDY + 1)
+
+
 @lru_cache(maxsize=32)
 def combo_tables(max_merged: int, ploidy: int, mixed: bool) -> np.ndarray:
-    """The kernel's genotype tables as one int32 array: a header of
-    (combo offset, max-allele offset, genotype count) for p = 0..6,
-    then genotype_combo_table(max_merged, p) flattened and its
-    per-genotype max allele, for every ploidy the launch needs (all of
-    1..ploidy in mixed mode, else `ploidy` alone)."""
-    header = np.zeros(3 * (MAX_PLOIDY + 1), np.int32)
-    parts = []
-    off = len(header)
+    """The kernel's tables as one int32 array: a header of (genotype
+    offset, genotype count) for p = 0..6; the term table C(a + i, i + 1)
+    for i < 6, a < TERM_ROWS (row i at i * TERM_ROWS); then one word per
+    genotype of genotype_combo_table(max_merged, p), for every ploidy the
+    launch needs (all of 1..ploidy in mixed mode, else `ploidy` alone):
+    allele q in bits 4q..4q+3 and the largest allele in bits 24..27
+    (alleles are below MAX_MERGED = 16)."""
+    header = np.zeros(_HEADER_INTS, np.int32)
+    term = np.array([[math.comb(a + i, i + 1) for a in range(TERM_ROWS)]
+                     for i in range(MAX_PLOIDY)], np.int64)
+    parts = [term.ravel()]
+    off = len(header) + term.size
     for p in (range(1, ploidy + 1) if mixed else (ploidy,)):
-        combos = genotype_combo_table(max_merged, p)
-        header[3 * p:3 * p + 3] = (off, off + combos.size, len(combos))
-        parts += [combos.ravel(), combos.max(axis=1).astype(np.int32)]
-        off += combos.size + len(combos)
+        combos = genotype_combo_table(max_merged, p).astype(np.int64)
+        words = ((combos << (4 * np.arange(p))).sum(axis=1)
+                 | (combos.max(axis=1) << 24))
+        header[2 * p:2 * p + 2] = (off, len(words))
+        parts.append(words)
+        off += len(words)
     return np.concatenate([header] + parts).astype(np.int32)
+
+
+@lru_cache(maxsize=64)
+def _device_tables(max_merged: int, ploidy: int, mixed: bool,
+                   device: torch.device) -> torch.Tensor:
+    """combo_tables on `device`, uploaded once per (M, ploidy, mixed,
+    device)."""
+    return torch.from_numpy(combo_tables(max_merged, ploidy, mixed)
+                            ).to(device)
+
+
+# ---- the tile plan (csrc/fused_gather_remap.cu's `Plan`) ----
+
+THREADS = 256                # the kernel's block size (kThreads)
+SMEM_MAX = 232448            # shared memory one block may use on sm_90
+SMEM_PER_SM = 233472         # an SM's shared memory for blocks
+SMEM_TARGET = 64 * 1024      # preferred: three or more blocks per SM
+H100_SMS = 132
+# tile shapes tried, largest first: (records, samples) per tile as
+# preferred records x the rest; the first that fits the budget wins
+_TILE_SIZES = (256, 128, 64, 32, 16)
+_PREFERRED_TB = 8
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """One launch's plan: tiles of `tb` records x `ts` samples, walked
+    record-block-major by `grid` blocks (as many as the SMs hold by
+    shared memory; the launch cuts them to those its registers allow);
+    PL in `n_chunks` passes of `gc` genotypes, each (tile, chunk) a work
+    item; `smem` bytes of dynamic shared memory laid out at the offsets
+    below.  The fields, in this order, are the kernel's `struct Plan`,
+    which copies them from `as_array()`."""
+    tb: int
+    ts: int
+    log2_tb: int
+    log2_nbs: int
+    gc: int
+    n_chunks: int
+    n_ts: int
+    n_tiles: int
+    grid: int
+    smem: int
+    lut_bytes: int
+    lut_live: int
+    lut_nr: int
+    lut_gtl: int
+    lut_inv: int
+    lut_recnm: int
+    lut_recnr: int
+    lut_row: int
+    inv_row: int
+    off_lut: int
+    off_hdr: int
+    off_term: int
+    off_cell: int
+    off_pll: int
+    off_pcall: int
+    off_ad: int
+    slot_ad: int
+    l2u_ad: int
+    off_gt: int
+    slot_gt: int
+    l2u_gt: int
+    off_sc: int
+    slot_sc: int
+    l2u_sc: int
+    off_dpi: int
+    slot_w: int
+    l2u_w: int
+    off_info: int
+    off_pl: int
+    slot_pl: int
+    l2u_pl: int
+
+    def as_array(self) -> np.ndarray:
+        return np.array(astuple(self), dtype=np.int32)
+
+
+PLAN_FIELDS = tuple(f.name for f in fields(TilePlan))
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _slot(run_bytes: int) -> int:
+    """Bytes of a staging slot for a run of `run_bytes` placed at its
+    destination's offset modulo 16."""
+    return _r16(run_bytes + 15)
+
+
+def _log2_units(slot: int) -> int:
+    return (slot // 16 - 1).bit_length()
+
+
+def _p2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _layout(tb, ts, gc, *, M, G_out, gt_w, nf, ev, es, mixed):
+    """The shared-memory layout of tiles of tb x ts with PL passes of
+    gc genotypes: a dict of PLAN_FIELDS' layout entries, "smem" the
+    total."""
+    d = {}
+    lut_row, inv_row = ts + 1, ts * M + 1
+    off = 0
+    for name, ints in (("lut_live", tb * lut_row), ("lut_nr", tb * lut_row),
+                       ("lut_gtl", tb * lut_row if mixed else 0),
+                       ("lut_inv", tb * inv_row), ("lut_recnm", tb),
+                       ("lut_recnr", tb)):
+        d[name] = off
+        off += _r16(4 * ints)
+    d.update(lut_bytes=off, lut_row=lut_row, inv_row=inv_row, off_lut=0)
+    off = 2 * off
+    nbs = tb * ts
+    for name, nbytes in (("off_hdr", 4 * _HEADER_INTS),
+                         ("off_term", 4 * MAX_PLOIDY * TERM_ROWS),
+                         ("off_cell", 8 * nbs), ("off_pll", 4 * nbs),
+                         ("off_pcall", 4 * nbs)):
+        d[name] = off
+        off += _r16(nbytes)
+    slot_w = _slot(4 * ts)
+    for kind, rows, slot in (("ad", tb, _slot(ts * M * ev)),
+                             ("gt", tb, _slot(ts * gt_w * ev)),
+                             ("sc", 3 * tb, _slot(ts * es)),
+                             ("dpi", tb, slot_w), ("info", nf * tb, slot_w),
+                             ("pl", tb, _slot(ts * gc * ev))):
+        d["off_" + kind] = off
+        off += rows * slot
+        if kind not in ("dpi", "info"):
+            d["slot_" + kind] = slot
+            d["l2u_" + kind] = _log2_units(slot)
+    d.update(slot_w=slot_w, l2u_w=_log2_units(slot_w), smem=off)
+    return d
+
+
+@lru_cache(maxsize=256)
+def tile_plan(B: int, S: int, M: int, G_out: int, gt_w: int, F: int,
+              Fi: int, Fs: int, *, mixed: bool, narrow: bool,
+              narrow_scalars: bool, n_sm: int = H100_SMS) -> TilePlan:
+    """The kernel's plan for one launch.  Tiles hold up to 256
+    (record, sample) pairs, 8 records by preference; the largest tile
+    whose layout fits SMEM_TARGET wins, else the largest that fits
+    SMEM_MAX.  When no whole PL row fits (m 16, ploidy 6: 54,264
+    genotypes), tiles are 32 records x 1 sample and PL is written in
+    chunks of genotypes, as many as fit; each (tile, chunk) is one work
+    item of the grid."""
+    ev = 2 if narrow else 4
+    es = 2 if narrow_scalars else 4
+    kw = dict(M=M, G_out=G_out, gt_w=gt_w, nf=F + Fi + Fs, ev=ev, es=es,
+              mixed=mixed)
+    shape = None
+    for budget in (SMEM_TARGET, SMEM_MAX):
+        for nbs in _TILE_SIZES:
+            ts = max(1, min(nbs // _PREFERRED_TB, _p2(S)))
+            tb_ = max(1, min(nbs // ts, _p2(B)))
+            lay = _layout(tb_, ts, G_out, **kw)
+            if lay["smem"] <= budget:
+                shape = (tb_, ts, G_out, 1, lay)
+                break
+        if shape:
+            break
+    if shape is None:
+        tb_, ts = 32, 1
+        fixed = _layout(tb_, ts, 0, **kw)["smem"] - tb_ * _slot(0)
+        gc = ((SMEM_MAX - fixed) // tb_ - 31) // ev
+        while _layout(tb_, ts, gc, **kw)["smem"] > SMEM_MAX:
+            gc -= 1
+        if gc < 1:
+            raise ValueError(f"no tile plan fits {SMEM_MAX} bytes of "
+                             f"shared memory (M {M}, G_out {G_out})")
+        shape = (tb_, ts, gc, -(-G_out // gc),
+                 _layout(tb_, ts, gc, **kw))
+    tb_, ts, gc, n_chunks, lay = shape
+    n_ts = -(-S // ts)
+    n_tiles = -(-B // tb_) * n_ts
+    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (lay["smem"]
+                                                           + 1024)))
+    return TilePlan(tb=tb_, ts=ts, log2_tb=tb_.bit_length() - 1,
+                    log2_nbs=(tb_ * ts).bit_length() - 1, gc=gc,
+                    n_chunks=n_chunks, n_ts=n_ts, n_tiles=n_tiles,
+                    grid=max(1, min(n_tiles * n_chunks, n_sm * per_sm)),
+                    **lay)
+
+
+@lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -173,10 +378,26 @@ fused_gather_remap.launches = 0
 fused_gather_remap.narrow_launches = 0
 
 
-def _launch(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
-            info_i, info_fs, live, inv_bs, nr_bs, rec_num_merged,
-            rec_has_nr, gt_len_bs, *, max_merged, ploidy, gt_phase, mixed,
-            narrow, narrow_scalars):
+def _launch(*args, **kw):
+    """Checks, allocates the outputs and launches the kernel on the
+    caller's stream (keywords of `_prepare`); counts the launch."""
+    out, launch = _prepare(*args, **kw)
+    if launch is not None:
+        launch()
+        fused_gather_remap.launches += 1
+        if kw["narrow"]:
+            fused_gather_remap.narrow_launches += 1
+    return out
+
+
+def _prepare(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
+             info_i, info_fs, live, inv_bs, nr_bs, rec_num_merged,
+             rec_has_nr, gt_len_bs, *, max_merged, ploidy, gt_phase, mixed,
+             narrow, narrow_scalars):
+    """Checks the inputs, allocates the outputs and binds one launch of
+    the kernel into them: (outputs, launch), where launch() enqueues the
+    kernel on the caller's stream and raises if it was refused (None
+    when there is nothing to launch)."""
     from ._kernel_build import load_library
     dev = live.device
     S, C, G_in = pl.shape
@@ -209,7 +430,11 @@ def _launch(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
     if mixed:
         _check("gt_len_bs", gt_len_bs, i32, (B, S), dev)
     G_out = len(genotype_combo_table(M, ploidy))
-    tables = torch.from_numpy(combo_tables(M, ploidy, bool(mixed))).to(dev)
+    tables = _device_tables(M, ploidy, bool(mixed), dev)
+    plan_arr = tile_plan(B, S, M, G_out, gt_w, F, Fi, Fs,
+                         mixed=bool(mixed), narrow=bool(narrow),
+                         narrow_scalars=bool(narrow_scalars),
+                         n_sm=_sm_count(dev)).as_array()
     rec_nr = rec_has_nr.to(i32)
     vt = i16 if narrow else i32            # PL / AD / GT
     st = i16 if narrow_scalars else i32    # GQ / DP / MIN_DP
@@ -226,29 +451,32 @@ def _launch(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
         "info_fs": torch.empty((Fs, B, S), dtype=f32, device=dev),
     }
     if B * S == 0:
-        return out
+        return out, None
     kl = load_library()
     ins = (pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
            info_i, info_fs, live, inv_bs, nr_bs, rec_num_merged, rec_nr)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kl.lib.gdb_fused_gather_remap(
-            *[t.data_ptr() for t in ins],
-            gt_len_bs.data_ptr() if mixed else None,
-            tables.data_ptr(),
-            *[out[k].data_ptr() for k in _OUT_KEYS],
-            B, S, C, G_in, A_in, gt_w, M, G_out, ploidy, F, Fi, Fs,
-            int(bool(gt_phase)), int(bool(mixed)), int(bool(narrow)),
-            int(bool(narrow_scalars)), stream)
-    if rc != 0:
-        mode = "narrow" if narrow else "wide"
-        raise RuntimeError(f"fused_gather_remap kernel launch ({mode}) "
-                           "failed: "
-                           + kl.lib.gdb_cuda_error_string(rc).decode())
-    fused_gather_remap.launches += 1
-    if narrow:
-        fused_gather_remap.narrow_launches += 1
-    return out
+    call_args = (
+        *[t.data_ptr() for t in ins],
+        gt_len_bs.data_ptr() if mixed else None, tables.data_ptr(),
+        *[out[k].data_ptr() for k in _OUT_KEYS],
+        B, S, C, G_in, A_in, gt_w, M, G_out, ploidy, F, Fi, Fs,
+        int(bool(gt_phase)), int(bool(mixed)), int(bool(narrow)),
+        int(bool(narrow_scalars)), plan_arr.ctypes.data, len(plan_arr),
+        stream)
+
+    def launch():
+        rc = kl.lib.gdb_fused_gather_remap(*call_args)
+        if rc != 0:
+            mode = "narrow" if narrow else "wide"
+            raise RuntimeError(f"fused_gather_remap kernel launch ({mode}) "
+                               "failed: "
+                               + kl.lib.gdb_cuda_error_string(rc).decode())
+
+    # the memory behind the pointers lives as long as the launch does
+    launch.keeps = (ins, gt_len_bs, tables, out, plan_arr)
+    return out, launch
 
 
 def fused_gather_remap_ref(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,

@@ -1,12 +1,9 @@
 """ColumnarStore -> device CellBlock conversion (the port's copy of
 `genomicsdb_tpu.ops.store_block`).
 
-A copy, not an import, because the original pulls in jax: it takes
-`CellBlock` from `combine_step`, and its extras path reaches
-`block_fields.remap_genotype_np`, which imports `jax_kernels`.  Here
-`CellBlock` comes from `cell_block`, and `remap_genotype_np` is a
-jax-free copy at the end of this module.  Everything else, the store
-caps (`merged_cap`, `PL_TENSOR_BUDGET`) included, is unchanged.
+The original takes `CellBlock` from `combine_step`, which imports jax;
+here it comes from `cell_block`.  Everything else, the store caps
+(`merged_cap`, `PL_TENSOR_BUDGET`) included, is unchanged.
 
 Bridges the storage layer to the batched device combine: per-row dense cell
 layout, padded field tensors, and the per-(interval, cell) allele LUTs.
@@ -25,13 +22,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from genomicsdb_tpu.core import formats
-from genomicsdb_tpu.core import known_fields as kf
-from genomicsdb_tpu.core.config import QueryConfig
-from genomicsdb_tpu.store.columnar import ColumnarStore
-from genomicsdb_tpu.ops import merge as M
+from ..core import formats
+from ..core import known_fields as kf
+from ..core.config import QueryConfig
+from ..store.columnar import ColumnarStore
+from . import merge as M
 
-from .cell_block import CellBlock, genotype_combo_table
+from .cell_block import CellBlock
 
 INT_MISSING = formats.INT_MISSING
 INT64_MAX = np.iinfo(np.int64).max
@@ -84,7 +81,7 @@ def _eff_valid_store(store, name, n_cells):
         cache = store._eff_valid_cache = {}
     ev = cache.get(name)
     if ev is None:
-        from genomicsdb_tpu.query.block_fields import effective_valid
+        from ..query.block_fields import effective_valid
         ev = effective_valid(store.fields.get(name), n_cells)
         cache[name] = ev
     return ev
@@ -287,7 +284,7 @@ def dense_layout(store: ColumnarStore, qc: QueryConfig, plan,
             sel = np.nonzero(ok)[0]
             ln = np.minimum(cell_lens[safe_cells[sel]], width)
             src0 = fd.offsets[:-1][safe_cells[sel]]
-            from genomicsdb_tpu.store.columnar import copy_ragged_segments
+            from ..store.columnar import copy_ragged_segments
             # dest rows are contiguous in the flat [S*C, width] buffer
             copy_ragged_segments(fd.values, src0, ln,
                                  sel.astype(np.int64) * width,
@@ -374,7 +371,7 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
     (dense_layout): per-chunk work is the live-index sweep, the allele
     LUT merge, and the extras gather.
     """
-    from genomicsdb_tpu.query.block_fields import (build_block_plan,
+    from ..query.block_fields import (build_block_plan,
                                                    effective_valid,
                                                    remap_allele_np)
     plan = build_block_plan(qc, qc.vid)
@@ -586,7 +583,7 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
             lv[:, s] = np.where(ok, idxc, -1)
         return lv
 
-    from genomicsdb_tpu.runtime import native_loader as _NL
+    from ..runtime import native_loader as _NL
     starts = events
     if N and cell_hasdel.any() and len(events) and S:
         _sw0 = _NL.live_sweep(col, end, cell_of, events)
@@ -611,7 +608,7 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
             end0 = np.minimum(np.minimum(nxt0, end0min), hi_b)
             seg = np.where(rec_del0, np.maximum(end0 - events + 1, 1),
                            1).astype(np.int64)
-            from genomicsdb_tpu.store.columnar import _ragged_arange
+            from ..store.columnar import _ragged_arange
             starts = _ragged_arange(events, seg)
     if pad_records is not None and len(starts) < pad_records:
         # sentinel starts beyond any cell: no live cells -> the writer
@@ -1062,7 +1059,7 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
             out[sel, :w] = fd.values[flat[sel], :w]
             lens_bs[sel] = fd.values.shape[1]
         else:
-            from genomicsdb_tpu.store.columnar import copy_ragged_segments
+            from ..store.columnar import copy_ragged_segments
             cell_lens = fd.lens()
             ln = np.minimum(cell_lens[flat[sel]], width)
             src0 = fd.offsets[:-1][flat[sel]]
@@ -1095,6 +1092,7 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
         """G-length remap with the sequential operator's record rule:
         ref-block-only records render RAW values (remapping_needed is
         False there), all others the genotype-remapped view."""
+        from ..query.block_fields import remap_genotype_np
         vals_r, ng = remap_genotype_np(vals, lens_bs, inv_bs, nr_bs,
                                        rec_num_merged, ploidy_ext(),
                                        fill)
@@ -1254,70 +1252,3 @@ def _min_pl_genotype(pl, num_alleles, ploidy):
             best = list(combo)
     return best
 
-
-def remap_genotype_np(vals: np.ndarray, lens: np.ndarray,
-                      inv_bs: np.ndarray, nr_bs: np.ndarray,
-                      rec_nm: np.ndarray, ploidy_bs: np.ndarray,
-                      missing) -> Tuple[np.ndarray, np.ndarray]:
-    """Copy of genomicsdb_tpu.query.block_fields.remap_genotype_np that
-    takes its genotype tables from `cell_block` (the original imports
-    them from `jax_kernels`).
-
-    numpy twin of remap_genotype_fields with per-call
-    ploidy: G-length (genotype-dependent) field remap for the extras
-    path (variant_field_handler.cc:84-296; PL takes the device kernel).
-
-    vals [B,S,K] raw gathered values, lens [B,S] valid input counts,
-    inv_bs [B,S,M] merged->input allele LUT, nr_bs [B,S] input NON_REF
-    index (-1 none), rec_nm [B] merged allele counts, ploidy_bs [B,S]
-    per-call ploidy (0 = no GT -> empty output, matching
-    genotype_combinations(nm, 0) == ()).
-
-    Returns (out [B,S,G_max], ng [B,S]): ng is the per-call output
-    genotype count C(nm + p - 1, p); out rows are missing-filled past it.
-    Relies on the same canonical-order prefix property as the device
-    kernel: genotypes over nm alleles are the first C(nm+p-1,p) rows of
-    the max-width combo table.
-    """
-    import math
-    B, S, K = vals.shape
-    Mw = inv_bs.shape[2]
-    ploidies = sorted(int(p) for p in np.unique(ploidy_bs) if p > 0)
-    if not ploidies or K == 0:
-        return (np.full((B, S, 1), missing, dtype=vals.dtype),
-                np.zeros((B, S), dtype=np.int64))
-    tables = {p: genotype_combo_table(Mw, p) for p in ploidies}
-    g_max = max(t.shape[0] for t in tables.values())
-    out = np.full((B, S, g_max), missing, dtype=vals.dtype)
-    ng = np.zeros((B, S), dtype=np.int64)
-    for p in ploidies:
-        combos = tables[p]                       # [Gp, p] ascending rows
-        sel = ploidy_bs == p
-        bi, si = np.nonzero(sel)
-        if len(bi) == 0:
-            continue
-        inv = inv_bs[bi, si]                     # [n, Mw]
-        a = inv[:, combos]                       # [n, Gp, p]
-        nr_c = nr_bs[bi, si][:, None, None]
-        a = np.where((a == -1) & (nr_c >= 0), nr_c, a)
-        bad = (a == -1).any(axis=2)              # unmappable combo
-        a = np.sort(np.maximum(a, 0), axis=2).astype(np.int64)
-        # canonical genotype index: sum_i C(i + a_i, i + 1)
-        in_gt = np.zeros(a.shape[:2], dtype=np.int64)
-        for i in range(p):
-            ai = a[:, :, i]
-            t = np.ones_like(ai)
-            for j in range(i + 1):
-                t = t * (ai + i - j)
-            in_gt += t // math.factorial(i + 1)
-        ok = ~bad & (in_gt < lens[bi, si][:, None])
-        # genotypes touching alleles beyond the record's merged count
-        # stay missing (the render also stops at ng)
-        ok &= combos.max(axis=1)[None, :] < rec_nm[bi][:, None]
-        gathered = np.take_along_axis(
-            vals[bi, si], np.clip(in_gt, 0, K - 1), axis=1)
-        out[bi, si, :combos.shape[0]] = np.where(ok, gathered, missing)
-        ng_lut = np.array([math.comb(n + p - 1, p)
-                           for n in range(Mw + 1)], dtype=np.int64)
-        ng[bi, si] = ng_lut[np.clip(rec_nm[bi], 0, Mw)]
-    return out, ng

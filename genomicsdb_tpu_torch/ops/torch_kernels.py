@@ -23,7 +23,7 @@ from typing import List, Tuple
 
 import torch
 
-from genomicsdb_tpu.core import formats
+from ..core import formats
 
 from .cell_block import genotype_combo_table, ncr_table
 

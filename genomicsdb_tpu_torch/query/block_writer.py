@@ -3,7 +3,7 @@
 
 Renders VCF text records from device combine-step outputs instead of the
 sequential per-cell engine.  Field handling is vid/query-driven
-(`genomicsdb_tpu.query.block_fields.BlockPlan`): the hot remaps and
+(`query/block_fields.BlockPlan`): the hot remaps and
 scalar INFO reductions come from the device combine, the long tail
 (element-wise sums, 2-D allele-specific fields, histograms, ID/QUAL
 combining, chars) is computed here from host-gathered arrays.  Records
@@ -18,7 +18,7 @@ JAX package's pack (`pack` on, the default on a CUDA device): the
 kernel writes PL/AD/GT (and GQ/DP/MIN_DP) as int16, the device packs
 the variant rows and the small outputs into one blob whose copy to
 pinned host memory starts before the previous chunk renders, and the
-host widens it and rebuilds the ref-block rows (the shared native
+host widens it and rebuilds the ref-block rows (the native
 `identity_outputs`).  With `pack` off (the default on the CPU device)
 every output is fetched whole with `.cpu().numpy()`.  The JAX package's
 mesh and dense-gather branches and its CPU-device `remap_rows`
@@ -32,21 +32,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from genomicsdb_tpu.core import formats
-from genomicsdb_tpu.core import known_fields as kf
-from genomicsdb_tpu.core.config import QueryConfig
-from genomicsdb_tpu.core.vid import VidMapper
-from genomicsdb_tpu.query.vcf_writer import (elem_sum_1d_core,
-                                             elem_sum_2d_core,
-                                             hist_sum_core)
-from genomicsdb_tpu.runtime import native_loader
-from genomicsdb_tpu.store.columnar import ColumnarStore
-from genomicsdb_tpu.vcf.fasta import ReferenceGenome
-
+from ..core import formats
+from ..core import known_fields as kf
+from ..core.config import QueryConfig
+from ..core.vid import VidMapper
 from ..ops.combine_step import (fetch_outputs, fetch_outputs_split,
                                 host_identity_outputs, pack_outputs)
 from ..ops.fused_combine import combine_block
 from ..ops.store_block import store_to_block
+from ..runtime import native_loader
+from ..store.columnar import ColumnarStore
+from .vcf_writer import elem_sum_1d_core, elem_sum_2d_core, hist_sum_core
 
 INT_MISSING = formats.INT_MISSING
 INT_VECTOR_END = formats.INT_VECTOR_END
@@ -221,7 +217,7 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
             plan_items.append(("block", b))
             block_bs.append(b)
             e += 1
-    from genomicsdb_tpu.core import profile
+    from ..core import profile
     if profile.ENABLED:
         profile.GLOBAL_STATS.bump("block_records", len(block_bs))
         profile.GLOBAL_STATS.bump("spliced_records",
@@ -905,7 +901,7 @@ class _HostInfo:
 def _remap_2d_vals(val, lut_row, num_merged, non_ref_exists, info):
     """remap_allele_specific_annotations (variant_operations.cc:482-570):
     dim-0 is A or R over alleles.  Mirrors CombineOperator._remap_2d."""
-    from genomicsdb_tpu.ops import merge as M
+    from ..ops import merge as M
     code = info.length.dims[0][0]
     alt_only = code == kf.VL_A
     inv = M.inverse_lut(lut_row, num_merged)

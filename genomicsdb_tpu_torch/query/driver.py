@@ -1,26 +1,145 @@
-"""Block-engine query driver on the port (counterpart of the block-engine
-part of `genomicsdb_tpu.query.driver`, lines 88-271).
+"""Query driver on the port: ties configs + store + operators together.
 
-Only the combined-gVCF block engine lives here, with an explicit torch
-`device` on every entry point.  The sequential oracle (`run_vcf_query`),
-`make_query_config` and the other query types are the JAX driver's
-own, which are jax-free and imported unchanged.  The serving index and
-out-of-core windows are not ported yet (the port's `gdb_query` serves an
-out-of-core store from its memory-mapped view).
+The host query types (`run_calls_query`, `run_vcf_query`, the sequential
+combined-gVCF oracle, `run_java_vcf_query`, `run_variants_query`) and
+the config helpers are copies of those of `genomicsdb_tpu.query.driver`.
+The combined-gVCF block engine (`run_vcf_query_block`) runs the port's
+device combine, with an explicit torch `device` on every entry point.
+The serving index and out-of-core windows are not ported yet (the
+port's `gdb_query` serves an out-of-core store from its memory-mapped
+view).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
-from genomicsdb_tpu.core.config import INT64_MAX, QueryConfig, QueryParams
-from genomicsdb_tpu.core.vid import VidMapper
-from genomicsdb_tpu.query.driver import make_query_config, run_vcf_query
-from genomicsdb_tpu.vcf.fasta import ReferenceGenome
-from genomicsdb_tpu.vcf.header import chrom_line, header_lines_cached
-
+from ..core.config import ImportParams, INT64_MAX, QueryConfig, QueryParams
+from ..core.vid import VidMapper
 from ..ops.store_block import record_starts
+from ..store.columnar import ColumnarStore
+from ..store.import_pipeline import import_callsets
+from ..vcf.fasta import ReferenceGenome
+from ..vcf.header import (build_header_lines, chrom_line,
+                          header_lines_cached, load_template)
+from . import json_output
 from .block_writer import render_block_vcf_pipelined
+from .scan import scan_and_operate
+from .vcf_writer import CombineToVCF
+
+
+def load_vid_for_query(qp: QueryParams,
+                       ip: Optional[ImportParams]) -> VidMapper:
+    vid_file = qp.vid_mapping_file or (ip.vid_mapping_file if ip else "")
+    callset_file = qp.callset_mapping_file or (
+        ip.callset_mapping_file if ip else "")
+    vid_path = (qp.resolve(vid_file) if qp.vid_mapping_file
+                else ip.resolve(vid_file))
+    cs_path = (qp.resolve(callset_file) if qp.callset_mapping_file
+               else (ip.resolve(callset_file) if ip else callset_file))
+    return VidMapper.from_files(vid_path, cs_path)
+
+
+def build_store_from_loader(ip: ImportParams, vid: VidMapper,
+                            rank: int = 0) -> ColumnarStore:
+    begin, end = ip.partition_bounds(rank) if ip.column_partitions \
+        else (0, None)
+    return import_callsets(
+        vid, base_dir=ip.base_dir,
+        column_partition=(begin, end if ip.column_partitions else None),
+        treat_deletions_as_intervals=ip.treat_deletions_as_intervals)
+
+
+def make_query_config(qp: QueryParams, vid: VidMapper) -> QueryConfig:
+    schema_attrs = vid.schema_attribute_names(import_id="ID" in vid.fields)
+    return QueryConfig(vid, qp, schema_attrs)
+
+
+def run_calls_query(store: ColumnarStore, qc: QueryConfig) -> str:
+    return json_output.print_calls_json(store, qc)
+
+
+def run_vcf_query(store: ColumnarStore, qc: QueryConfig, qp: QueryParams,
+                  vid: VidMapper,
+                  template_path: Optional[str] = None,
+                  reference_path: Optional[str] = None) -> str:
+    """--produce-Broad-GVCF through the sequential engine (the
+    per-record oracle): header + combined records."""
+    ref_genome = ReferenceGenome(reference_path) if reference_path else None
+    sample_names = [vid.callset_name(r) for r in qc.rows_to_query]
+    # any vid field can appear as a FILTER id (PASS/LowQual have no
+    # vcf_field_class in the test vids); map every global field idx
+    filter_names = {info.field_idx: name
+                    for name, info in vid.fields.items()}
+    op = CombineToVCF(qc, vid, ref_genome, sample_names,
+                      filter_name_by_field_idx=filter_names)
+    out_lines: List[str] = []
+    if template_path:
+        template = load_template(template_path)
+        out_lines.extend(build_header_lines(template, vid, qc))
+        out_lines.append(chrom_line(sample_names, qc.sites_only_query))
+    from ..core import profile
+    intervals = qc.column_intervals if qc.column_intervals else [None]
+    with profile.GLOBAL_STATS.phase("Combined-gVCF-production"):
+        for iv in intervals:
+            scan_and_operate(store, qc, op.operate, iv,
+                             handle_spanning_deletions=True)
+    out_lines.extend(op.lines)
+    if not out_lines:
+        return ""
+    return "\n".join(out_lines) + "\n"
+
+
+def run_java_vcf_query(store: ColumnarStore, qc: QueryConfig,
+                       qp: QueryParams, vid: VidMapper,
+                       template_path: Optional[str] = None,
+                       reference_path: Optional[str] = None,
+                       sort_samples: bool = False,
+                       transform_header: bool = True) -> str:
+    """java_vcf query type: htsjdk-rendered combined VCF
+    (TestGenomicsDB --query path).  sort_samples reorders sample columns
+    alphabetically (the Spark reader's behavior, spark_* goldens);
+    transform_header=False keeps the htslib-style header (the spark
+    harness pairs the C header with htsjdk records for some configs)."""
+    from .java_writer import JavaCombineToVCF, transform_header_lines
+    ref_genome = ReferenceGenome(reference_path) if reference_path else None
+    sample_names = [vid.callset_name(r) for r in qc.rows_to_query]
+    if sort_samples:
+        order = sorted(range(len(sample_names)),
+                       key=lambda i: sample_names[i])
+        qc.rows_to_query = [qc.rows_to_query[i] for i in order]
+        sample_names = [sample_names[i] for i in order]
+    filter_names = {info.field_idx: name
+                    for name, info in vid.fields.items()}
+    op = JavaCombineToVCF(qc, vid, ref_genome, sample_names,
+                          filter_name_by_field_idx=filter_names)
+    out_lines: List[str] = []
+    if template_path:
+        template = load_template(template_path)
+        hdr = build_header_lines(template, vid, qc)
+        if transform_header:
+            hdr = transform_header_lines(hdr)
+        out_lines.extend(hdr)
+        out_lines.append(chrom_line(sample_names, qc.sites_only_query))
+    intervals = qc.column_intervals if qc.column_intervals else [None]
+    for iv in intervals:
+        scan_and_operate(store, qc, op.operate, iv,
+                         handle_spanning_deletions=True)
+    out_lines.extend(op.lines)
+    if not out_lines:
+        return ""
+    return "\n".join(out_lines) + "\n"
+
+
+def run_variants_query(store: ColumnarStore, qc: QueryConfig) -> str:
+    """Range query (gt_get_column_interval + GA4GH merge), default JSON."""
+    from .variants_path import gt_get_column_interval
+    variants = []
+    intervals = qc.column_intervals if qc.column_intervals \
+        else [(0, INT64_MAX - 1)]
+    for iv in intervals:
+        variants.extend(gt_get_column_interval(store, qc, iv))
+    return json_output.print_variants_json(variants, qc)
 
 
 def run_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,

@@ -5,8 +5,8 @@ only).
 `n_samples` samples split over a few multi-sample gVCF files ("groups";
 samples of one group share its record layout, as in a joint-called
 batch), and the vid, callset-mapping, loader and query JSON that import
-it with `python -m genomicsdb_tpu.tools.vcf2gdb` and query it with
-either package's `gdb_query`.  Modelled on
+it with either package's `vcf2gdb` and query it with either
+package's `gdb_query`.  Modelled on
 `genomicsdb_tpu.tools.scaling_bench._write_cohort`.
 
 Each group's records tile the same region: reference blocks (`END=`) of

@@ -1,34 +1,241 @@
-"""Query CLI on the port (counterpart of `genomicsdb_tpu.tools.gdb_query`).
+"""Query CLI on the port (gt_mpi_gather equivalent; counterpart of
+`genomicsdb_tpu.tools.gdb_query`).
 
 Usage:
   python -m genomicsdb_tpu_torch.tools.gdb_query -j query.json
-      [-l loader.json] --produce-Broad-GVCF [--device cuda|cpu] ...
+      [-l loader.json]
+      [--print-calls | --print-csv | --print-AC | --produce-Broad-GVCF
+       | --produce-interesting-positions | --produce-histogram]
+      [--engine block|sequential] [--device cuda|cpu] [-r rank]
+      [--num-ranks N]
 
-Takes the JAX tool's arguments (its parser and context loading are
-jax-free and reused) plus `--device`, the counterpart of `--platform`.
+Takes the JAX tool's arguments plus `--device`, the counterpart of
+`--platform`.  `--produce-Broad-GVCF` with the block engine (the
+default) runs the port's device combine on that device; every other
+query mode, `--java-vcf` and `--engine sequential` run on the host.
 The fetch pack is on by default on a CUDA device and off on the CPU;
 callers of `main` / `run_rank` (tests, chip_smoke.py) force it with the
-`pack` keyword.
-`--produce-Broad-GVCF` with the block engine (the default) runs the
-port's driver on that device; the other query modes and
-`--engine sequential` are host-only and run the JAX tool's own
-branches.  `--mesh`, `--platform`, `--parallel-ranks` and the paged
-combined stream (`-p/--page-size`) are refused.
+`pack` keyword.  `--mesh`, `--platform`, `--parallel-ranks` and the
+paged combined stream (`-p/--page-size`) are refused.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 
-from genomicsdb_tpu.core.config import QueryParams
-from genomicsdb_tpu.tools import gdb_query as jax_tool
-
+from ..core.config import INT64_MAX, ImportParams, QueryParams
 from ..device import resolve_device
-from ..query import driver as tdriver
+from ..query import driver as qdriver
+from ..query import operators as ops
+from ..query.scan import iterate_cells, scan_and_operate
+from ..store import workspace as ws
+
+
+def load_context(args, rank: int):
+    ip = ImportParams.from_file(args.loader) if args.loader else None
+    if getattr(args, "query_pb", None):
+        # binary ExportConfiguration (the reference's PB plane; wire-
+        # compatible schemas in protos/compat/)
+        from ..core import pb_compat
+        with open(args.query_pb, "rb") as f:
+            qp, pb_vid = pb_compat.export_config_to_query(f.read())
+        vid = pb_vid if pb_vid is not None \
+            else qdriver.load_vid_for_query(qp, ip)
+    else:
+        qp = QueryParams.from_file(args.query_json, rank)
+        vid = qdriver.load_vid_for_query(qp, ip)
+    if args.segment_size:
+        qp.segment_size = args.segment_size
+    if args.chromosome:
+        # --chromosome/--begin/--end contig-interval query (TestGenomicsDB
+        # java driver flags): translate to flattened columns via the vid
+        lo = vid.flatten_position(args.chromosome, args.begin or 1)
+        hi = vid.flatten_position(
+            args.chromosome,
+            args.end or vid.contigs[args.chromosome].length)
+        qp.column_ranges = [[(lo, hi)]]
+    workspace = qp.workspace or ""
+    store = None
+    if workspace and qp.array_name and ws.is_workspace(workspace):
+        store = _open_store(args, qp, workspace)
+    if store is None and ip is not None and ip.column_partitions:
+        # inherit this rank's workspace/array from the loader JSON
+        # (the reference's update_from_loader, gt_mpi_gather.cc:550-557)
+        # — query the IMPORTED partition instead of re-importing
+        parts = sorted(ip.column_partitions,
+                       key=lambda p: int(p["begin"]))
+        if rank < len(parts):
+            part = parts[rank]
+            w = ip.resolve(part.get("workspace", "")) \
+                if part.get("workspace") else ""
+            a = part.get("array_name") or part.get("array") or ""
+            if w and a and ws.is_workspace(w) \
+                    and ws.array_exists(w, a):
+                qp.workspace, qp.array_name = w, a
+                store = _open_store(args, qp, w)
+    if store is None:
+        if ip is not None:
+            store = qdriver.build_store_from_loader(ip, vid, rank)
+        elif vid.callsets:
+            # inline callset mapping (PB plane): import directly
+            from ..store.import_pipeline import import_callsets
+            store = import_callsets(vid)
+        else:
+            raise SystemExit("no workspace array found and no loader JSON "
+                             "given to import from")
+    # subset query ranges against the rank's loader partition
+    # (gt_mpi_gather.cc:556-557)
+    if ip is not None and ip.column_partitions and qp.column_ranges:
+        lo, hi = ip.partition_bounds(rank)
+        subset = [(max(a, lo), min(b, hi))
+                  for a, b in qp.column_ranges[0] if a <= hi and b >= lo]
+        qp.column_ranges = [subset]
+    return ip, qp, vid, store
+
+
+def _open_store(args, qp, workspace):
+    """Open the workspace array — out-of-core (memory-bounded column
+    windows at segment_size granularity) with --ooc, or automatically
+    when a single v2 fragment exceeds GENOMICSDB_TPU_OOC_THRESHOLD
+    (default 4 GiB); in-RAM otherwise."""
+    import os as _os
+    use_ooc = getattr(args, "ooc", False)
+    if not use_ooc and "://" not in workspace:
+        from ..store.fragment_v2 import V2_SUFFIX, read_manifest
+        frags = ws._fragment_paths(workspace, qp.array_name)
+        if len(frags) == 1 and frags[0].endswith(V2_SUFFIX):
+            thresh = int(_os.environ.get(
+                "GENOMICSDB_TPU_OOC_THRESHOLD", 4 << 30))
+            if read_manifest(frags[0])["total_bytes"] > thresh:
+                use_ooc = True
+    if use_ooc:
+        return ws.open_array_ooc(workspace, qp.array_name,
+                                 segment_size=qp.segment_size)
+    return ws.open_array(workspace, qp.array_name)
+
+
+def run_rank(args, rank: int, device, pack=None) -> str:
+    """One rank's output text: the block-engine combined gVCF on
+    `device` (`pack` as in driver.run_vcf_query_block), every other
+    query mode on the host."""
+    ip, qp, vid, store = load_context(args, rank)
+    from ..store.fragment_v2 import OocArray
+    if isinstance(store, OocArray):
+        # out-of-core windows are not ported: serve the memory-mapped
+        # store view (the OS pages in what the query touches)
+        store = store.store
+    qc = qdriver.make_query_config(qp, vid)
+    if args.print_calls:
+        return qdriver.run_calls_query(store, qc)
+    if args.print_csv:
+        ivs = qc.column_intervals or None
+        return ops.print_csv(store, qc, ivs)
+    if args.print_AC:
+        op = ops.AlleleCountOperator(qc)
+        for iv in (qc.column_intervals or [None]):
+            for call in iterate_cells(store, qc, iv):
+                op.operate(call)
+        return op.render()
+    if args.produce_interesting_positions:
+        op = ops.InterestingLocationsPrinter()
+        for iv in (qc.column_intervals or [None]):
+            scan_and_operate(store, qc, op.operate, iv)
+        return op.render()
+    if args.produce_histogram:
+        op = ops.ColumnHistogramOperator(0, 4_000_000_000, args.bin_size)
+        for iv in (qc.column_intervals or [None]):
+            for call in iterate_cells(store, qc, iv):
+                op.operate(call)
+        return op.equi_partition_and_render(args.num_equi_bins)
+    if args.produce_Broad_GVCF:
+        template = qp.resolve(qp.vcf_header_filename) \
+            if qp.vcf_header_filename else None
+        if template is None and ip is not None and ip.vcf_header_filename:
+            template = ip.resolve(ip.vcf_header_filename)
+        refg = qp.resolve(qp.reference_genome) if qp.reference_genome \
+            else (ip.resolve(ip.reference_genome) if ip else None)
+        # header only on the first rank (partition outputs are concatenated)
+        tmpl = template if rank == args.rank \
+            and not args.no_vcf_header else None
+        if args.java_vcf:
+            return qdriver.run_java_vcf_query(
+                store, qc, qp, vid, template_path=tmpl,
+                reference_path=refg)
+        if args.engine == "sequential":
+            return qdriver.run_vcf_query(store, qc, qp, vid,
+                                         template_path=tmpl,
+                                         reference_path=refg)
+        return qdriver.run_vcf_query_block(store, qc, qp, vid, device,
+                                           template_path=tmpl,
+                                           reference_path=refg, pack=pack)
+    if args.output_format in ("Cotton-JSON", "Positions-JSON"):
+        from ..query import json_output
+        from ..query.variants_path import gt_get_column_interval
+        per_interval = [(iv, gt_get_column_interval(store, qc, iv))
+                        for iv in (qc.column_intervals
+                                   or [(0, INT64_MAX - 1)])]
+        if args.output_format == "Cotton-JSON":
+            return json_output.print_cotton_json(
+                [v for _, vs in per_interval for v in vs], qc)
+        return json_output.print_positions_json(per_interval, qc)
+    # default: variants JSON range query
+    return qdriver.run_variants_query(store, qc)
 
 
 def _build_parser():
-    p = jax_tool._build_parser()
+    p = argparse.ArgumentParser(prog="gdb_query")
+    p.add_argument("-j", "--query-json", dest="query_json", default=None)
+    p.add_argument("--query-pb", dest="query_pb", default=None,
+                   help="binary ExportConfiguration protobuf "
+                        "(reference-schema wire format) instead of -j")
+    p.add_argument("-l", "--loader", default=None)
+    p.add_argument("-s", "--segment-size", type=int, default=0)
+    p.add_argument("--ooc", action="store_true",
+                   help="accepted for the JAX tool's command lines; the "
+                        "port serves an out-of-core store from its "
+                        "memory-mapped view")
+    p.add_argument("-p", "--page-size", type=int, default=0)
+    p.add_argument("-r", "--rank", type=int, default=0)
+    p.add_argument("--num-ranks", type=int, default=1,
+                   help="gather outputs of ranks [rank, rank+num_ranks)")
+    p.add_argument("--parallel-ranks", action="store_true",
+                   help="refused on the port")
+    p.add_argument("--rank-piece", action="store_true",
+                   help=argparse.SUPPRESS)   # internal: worker mode
+    p.add_argument("--no-vcf-header", action="store_true",
+                   help=argparse.SUPPRESS)   # internal: non-first rank
+    p.add_argument("--print-calls", action="store_true")
+    p.add_argument("--print-csv", action="store_true")
+    p.add_argument("--print-AC", dest="print_AC", action="store_true")
+    p.add_argument("--produce-Broad-GVCF", dest="produce_Broad_GVCF",
+                   action="store_true")
+    p.add_argument("--produce-interesting-positions",
+                   action="store_true")
+    p.add_argument("--produce-histogram", dest="produce_histogram",
+                   action="store_true")
+    p.add_argument("--bin-size", type=int, default=10000)
+    p.add_argument("--num-equi-bins", type=int, default=10)
+    p.add_argument("--chromosome", default=None)
+    p.add_argument("--begin", type=int, default=None)
+    p.add_argument("--end", type=int, default=None)
+    p.add_argument("--java-vcf", dest="java_vcf", action="store_true",
+                   help="htsjdk-style rendering for --produce-Broad-GVCF")
+    p.add_argument("--mesh", default=None, metavar="POSxROW",
+                   help="refused on the port (the sharded combine is not "
+                        "ported yet)")
+    p.add_argument("--engine", choices=["sequential", "block"],
+                   default="block",
+                   help="combined-VCF engine (default: block — the "
+                        "batched device engine; byte-identical to "
+                        "'sequential', the per-record reference-"
+                        "semantics oracle)")
+    p.add_argument("-O", "--output-format", dest="output_format",
+                   default="", choices=["", "Cotton-JSON",
+                                        "Positions-JSON", "GA4GH"],
+                   help="range-query output format (default GA4GH-like)")
+    p.add_argument("--platform", default=None,
+                   help="refused on the port, which takes --device")
     p.add_argument("--device", default="cuda",
                    help="torch device for the block engine's combine "
                         "('cuda' default, or 'cpu'); 'cuda' without a "
@@ -52,34 +259,6 @@ def _refuse(args) -> None:
                          "stream) is not supported on the port")
 
 
-def run_rank(args, rank: int, device, pack=None) -> str:
-    """One rank's output text: the block-engine combined gVCF on
-    `device` (`pack` as in driver.run_vcf_query_block), or the JAX
-    tool's host-only branches for everything else."""
-    if not (args.produce_Broad_GVCF and args.engine == "block"
-            and not args.java_vcf):
-        return jax_tool.run_rank(args, rank)
-    ip, qp, vid, store = jax_tool.load_context(args, rank)
-    from genomicsdb_tpu.store.fragment_v2 import OocArray
-    if isinstance(store, OocArray):
-        # out-of-core windows are not ported: serve the memory-mapped
-        # store view (the OS pages in what the query touches)
-        store = store.store
-    qc = tdriver.make_query_config(qp, vid)
-    template = qp.resolve(qp.vcf_header_filename) \
-        if qp.vcf_header_filename else None
-    if template is None and ip is not None and ip.vcf_header_filename:
-        template = ip.resolve(ip.vcf_header_filename)
-    refg = qp.resolve(qp.reference_genome) if qp.reference_genome \
-        else (ip.resolve(ip.reference_genome) if ip else None)
-    # header only on the first rank (partition outputs are concatenated)
-    tmpl = template if rank == args.rank \
-        and not args.no_vcf_header else None
-    return tdriver.run_vcf_query_block(store, qc, qp, vid, device,
-                                       template_path=tmpl,
-                                       reference_path=refg, pack=pack)
-
-
 def main(argv=None, *, pack=None):
     p = _build_parser()
     args = p.parse_args(argv)
@@ -100,8 +279,9 @@ def main(argv=None, *, pack=None):
         raise SystemExit(f"gdb_query: unknown contig or field {e} "
                          "(check --chromosome / vid mapping)")
     text = "".join(pieces)
+    # vcf_output_filename / vcf_output_format knobs (VCFAdapter "z" mode)
     if args.query_pb:
-        from genomicsdb_tpu.core import pb_compat
+        from ..core import pb_compat
         with open(args.query_pb, "rb") as f:
             qp0, _ = pb_compat.export_config_to_query(f.read())
     else:
@@ -110,14 +290,15 @@ def main(argv=None, *, pack=None):
         sys.stdout.write(text)
         return
     if qp0.vcf_output_filename and qp0.vcf_output_filename != "-":
-        from genomicsdb_tpu.vcf.bgzf import open_output
+        from ..vcf.bgzf import open_output
         with open_output(qp0.resolve(qp0.vcf_output_filename),
                          qp0.vcf_output_format,
                          index=qp0.index_output_VCF) as f:
             f.write(text)
     else:
         sys.stdout.write(text)
-    from genomicsdb_tpu.core import profile
+    # GENOMICSDB_TPU_PROFILE=1: scan counters + timers + memory to stderr
+    from ..core import profile
     profile.maybe_report()
 
 

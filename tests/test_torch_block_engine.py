@@ -1,9 +1,10 @@
 """The port's block engine end to end on the CPU: a seeded in-repo gVCF
 cohort with deletions and multi-allelic sites (genomicsdb_tpu_torch.
-testing), imported with vcf2gdb, queried with the port's gdb_query
-(--device cpu) and with genomicsdb_tpu's gdb_query (block and
-sequential engines).  The texts must be byte-identical; the same port
-query also runs in a subprocess where jax cannot be imported."""
+testing), imported with the port's vcf2gdb, queried with the port's
+gdb_query (--device cpu) and with genomicsdb_tpu's gdb_query (block and
+sequential engines), each side loading the store from the same files.
+The texts must be byte-identical; the same port query also runs in a
+subprocess where neither jax nor genomicsdb_tpu can be imported."""
 
 import contextlib
 import io
@@ -14,10 +15,10 @@ import sys
 import pytest
 
 from genomicsdb_tpu.tools import gdb_query as jax_gdb_query
-from genomicsdb_tpu.tools import vcf2gdb
 from genomicsdb_tpu_torch.ops import fused_combine as FC
 from genomicsdb_tpu_torch.testing import write_cohort
 from genomicsdb_tpu_torch.tools import gdb_query as torch_gdb_query
+from genomicsdb_tpu_torch.tools import vcf2gdb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -77,27 +78,30 @@ def test_port_refuses_mesh_and_missing_card(cohort, monkeypatch):
 
 
 def test_port_runs_with_jax_blocked(cohort):
-    """The same query in a fresh interpreter where `import jax` fails:
-    the port and every shared module on its path stay jax-free, the
-    extras path's G-length remap included."""
+    """The same query in a fresh interpreter where `import jax` and
+    `import genomicsdb_tpu` fail: the port and its own host modules on
+    its path import neither, the extras path's G-length remap
+    included."""
     expected = _run(torch_gdb_query.main, ["-j", cohort.query,
                                            "--produce-Broad-GVCF",
                                            "--device", "cpu"])
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['genomicsdb_tpu'] = None\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "from genomicsdb_tpu_torch.tools import gdb_query\n"
         f"gdb_query.main(['-j', {cohort.query!r}, '--produce-Broad-GVCF',"
         " '--device', 'cpu'])\n"
         "import numpy as np\n"
-        "from genomicsdb_tpu_torch.ops.store_block import "
+        "from genomicsdb_tpu_torch.query.block_fields import "
         "remap_genotype_np\n"
         "z = np.zeros((1, 1, 3), np.int32)\n"
         "remap_genotype_np(z, np.ones((1, 1)), np.zeros((1, 1, 2), "
         "np.int32), -np.ones((1, 1), np.int32), np.full(1, 2, np.int32), "
         "np.full((1, 1), 2), -1)\n"
-        "assert sys.modules['jax'] is None\n")
+        "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['genomicsdb_tpu'] is None\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

@@ -4,7 +4,8 @@ fetch and the host identity rebuild.  The text must be byte-identical
 to genomicsdb_tpu's block engine with GENOMICSDB_TPU_FUSED=1 and
 GENOMICSDB_TPU_PACK=1 (its Pallas kernel in interpret mode), to its
 sequential engine and to the port with the pack off; the same query also
-runs in a subprocess where jax cannot be imported."""
+runs in a subprocess where neither jax nor genomicsdb_tpu can be
+imported."""
 
 import contextlib
 import io
@@ -16,13 +17,13 @@ import pytest
 import torch
 
 from genomicsdb_tpu.tools import gdb_query as jax_gdb_query
-from genomicsdb_tpu.tools import vcf2gdb
 from genomicsdb_tpu_torch.ops import combine_step as TC
 from genomicsdb_tpu_torch.ops import fused_combine as FC
 from genomicsdb_tpu_torch.query import block_writer as BW
 from genomicsdb_tpu_torch.query import driver as tdriver
 from genomicsdb_tpu_torch.testing import write_cohort
 from genomicsdb_tpu_torch.tools import gdb_query as torch_gdb_query
+from genomicsdb_tpu_torch.tools import vcf2gdb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,7 +83,7 @@ def test_packed_port_over_small_chunks(cohort):
     chunk without the pack."""
     args = torch_gdb_query._build_parser().parse_args(
         ["-j", cohort.query, "--produce-Broad-GVCF"])
-    _, qp, vid, store = jax_gdb_query.load_context(args, 0)
+    _, qp, vid, store = torch_gdb_query.load_context(args, 0)
     cpu = torch.device("cpu")
 
     def query(**kw):
@@ -97,13 +98,14 @@ def test_packed_port_over_small_chunks(cohort):
 
 
 def test_packed_port_runs_with_jax_blocked(cohort):
-    """The packed query in a fresh interpreter where `import jax`
-    fails."""
+    """The packed query in a fresh interpreter where `import jax` and
+    `import genomicsdb_tpu` fail."""
     argv = ["-j", cohort.query, "--produce-Broad-GVCF", "--device", "cpu"]
     expected = _run(torch_gdb_query.main, argv, pack=True)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['genomicsdb_tpu'] = None\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "from genomicsdb_tpu_torch.tools import gdb_query\n"
         "from genomicsdb_tpu_torch.query import block_writer\n"

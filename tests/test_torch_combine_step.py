@@ -1,11 +1,13 @@
 """The port's general combine_step against genomicsdb_tpu's combine_step
-on synthetic cohort blocks: same numpy block to both, outputs compared
-exactly (keys, dtypes, integers, float bits)."""
+on synthetic cohort blocks: each package builds its own block from the
+same seed, and the outputs are compared exactly (keys, dtypes,
+integers, float bits)."""
 
 import numpy as np
 import pytest
 
 from genomicsdb_tpu.ops import combine_step as JC
+from genomicsdb_tpu_torch.ops import cell_block as CB
 from genomicsdb_tpu_torch.ops import combine_step as TC
 
 
@@ -23,13 +25,15 @@ def compare_outputs(ref, got):
 
 
 def make_block(S, C, R, seed, m=4, ploidy=2, mixed=False, phased=False,
-               drop=0.05, del_rw=0.2):
-    """A JAX-package synthetic block, with some (record, sample) cells
-    that have no live call (LUTs -1, as the store path writes them),
+               drop=0.05, del_rw=0.2, pkg=CB):
+    """A synthetic block built by `pkg` (the port's `cell_block`, or the
+    JAX package's `combine_step`), with some (record, sample) cells that
+    have no live call (LUTs -1, as the store path writes them),
     spanning-deletion-rewritten calls, and optionally per-call ploidy
-    over a phased GT layout."""
-    blk = JC.synthesize_cohort(S, C, R, seed=seed, max_merged=m,
-                               ploidy=ploidy)
+    over a phased GT layout.  Both packages give the same arrays for
+    the same arguments."""
+    blk = pkg.synthesize_cohort(S, C, R, seed=seed, max_merged=m,
+                                ploidy=ploidy)
     rng = np.random.default_rng(seed + 1)
     B, S = blk.live.shape
     gone = rng.random((B, S)) < drop
@@ -50,6 +54,11 @@ def make_block(S, C, R, seed, m=4, ploidy=2, mixed=False, phased=False,
     return blk
 
 
+def make_blocks(**kw):
+    """(the JAX package's block, the port's block) of `make_block`."""
+    return make_block(pkg=JC, **kw), make_block(pkg=CB, **kw)
+
+
 CASES = {
     "diploid": dict(S=8, C=64, R=4096, seed=21),
     "odd_sizes": dict(S=5, C=40, R=3000, seed=7),
@@ -64,34 +73,36 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_combine_step_matches_jax(case):
     kw = dict(CASES[case])
-    blk = make_block(**kw)
+    jblk, tblk = make_blocks(**kw)
     m, p = kw.get("m", 4), kw.get("ploidy", 2)
     flags = dict(max_merged=m, ploidy=p, gt_phase=kw.get("phased", False),
                  mixed_ploidy=kw.get("mixed", False))
-    ref = JC.combine_step(*JC.block_to_args(blk), **flags)
-    got = TC.combine_step(*TC.block_to_tensors(blk, "cpu"), **flags)
+    ref = JC.combine_step(*JC.block_to_args(jblk), **flags)
+    got = TC.combine_step(*TC.block_to_tensors(tblk, "cpu"), **flags)
     compare_outputs(ref, got)
 
 
 def test_block_to_tensors_takes_either_block():
-    """A block built by the port and one built by the JAX package give
-    the same tensors."""
-    from genomicsdb_tpu_torch.ops.cell_block import synthesize_cohort
-    a = TC.block_to_tensors(JC.synthesize_cohort(4, 32, 1024, seed=2),
-                            "cpu")
-    b = TC.block_to_tensors(synthesize_cohort(4, 32, 1024, seed=2), "cpu")
+    """A block built by the port and one built by the JAX package from
+    the same seed give the same arrays: the port's tensors equal the JAX
+    package's block_to_args, dtype for dtype and byte for byte."""
+    jblk, tblk = make_blocks(S=4, C=32, R=1024, seed=2, mixed=True)
+    a = JC.block_to_args(jblk)
+    b = TC.block_to_tensors(tblk, "cpu")
     assert len(a) == len(b) == 19
     for x, y in zip(a, b):
+        x, y = np.asarray(x), y.numpy()
         assert x.dtype == y.dtype and x.shape == y.shape
-        assert (x.view(-1).numpy().view(np.uint8)
-                == y.view(-1).numpy().view(np.uint8)).all()
+        assert (x.reshape(-1).view(np.uint8)
+                == y.reshape(-1).view(np.uint8)).all()
 
 
 def test_remap_genotype_np_copy_matches_block_fields():
-    """The port's jax-free copy of the extras-path G-length remap equals
-    genomicsdb_tpu.query.block_fields.remap_genotype_np."""
+    """The port's copy of the extras-path G-length remap (its
+    query/block_fields, with the genotype tables of ops/cell_block)
+    equals genomicsdb_tpu.query.block_fields.remap_genotype_np."""
     from genomicsdb_tpu.query.block_fields import remap_genotype_np
-    from genomicsdb_tpu_torch.ops import store_block as TSB
+    from genomicsdb_tpu_torch.query import block_fields as TSB
     rng = np.random.default_rng(11)
     B, S, K, M = 6, 5, 15, 5
     vals = rng.integers(0, 900, (B, S, K)).astype(np.int32)

@@ -14,15 +14,16 @@ import torch
 from genomicsdb_tpu.core import formats
 from genomicsdb_tpu.ops import combine_step as JC
 from genomicsdb_tpu.ops import pallas_combine as PC
-from genomicsdb_tpu.runtime import native_loader
-from genomicsdb_tpu.tools import gdb_query as jax_gdb_query
-from genomicsdb_tpu.tools import vcf2gdb
+from genomicsdb_tpu.runtime import native_loader as jax_native_loader
+from genomicsdb_tpu_torch.ops import cell_block as CB
 from genomicsdb_tpu_torch.ops import combine_step as TC
 from genomicsdb_tpu_torch.ops import fused_combine as FC
 from genomicsdb_tpu_torch.ops.store_block import store_to_block
 from genomicsdb_tpu_torch.query.driver import make_query_config
+from genomicsdb_tpu_torch.runtime import native_loader
 from genomicsdb_tpu_torch.testing import write_cohort
 from genomicsdb_tpu_torch.tools import gdb_query as torch_gdb_query
+from genomicsdb_tpu_torch.tools import vcf2gdb
 
 MISS, EOV = formats.INT_MISSING, formats.INT_VECTOR_END
 
@@ -113,11 +114,13 @@ def test_narrow_pack_fetch_roundtrip(mixed):
     int32 outputs exactly (int16 pass-through, the int16->int8 GT
     re-narrow with VECTOR_END -> -127), and the blob equals the JAX
     package's for the same block."""
-    blk = JC.synthesize_cohort(6, 48, 4096, seed=9)
+    blk = CB.synthesize_cohort(6, 48, 4096, seed=9)
+    jblk = JC.synthesize_cohort(6, 48, 4096, seed=9)
     if mixed:
         B, S = blk.live.shape
         blk.gt_len_bs = np.random.default_rng(5).integers(
             1, 3, size=(B, S)).astype(np.int32)
+        jblk.gt_len_bs = blk.gt_len_bs.copy()
     flags = dict(max_merged=4, ploidy=2, mixed_ploidy=mixed)
     wide = FC.combine_step_fused(blk, "cpu", **flags)
     out = FC.combine_step_fused(blk, "cpu", narrow_out=True, **flags)
@@ -138,7 +141,7 @@ def test_narrow_pack_fetch_roundtrip(mixed):
         if a.dtype.kind == "f":
             a, b = a.view(np.int32), b.view(np.int32)
         np.testing.assert_array_equal(a, b, err_msg=k)
-    ref = PC.combine_step_fused(blk, interpret=True, narrow_out=True,
+    ref = PC.combine_step_fused(jblk, interpret=True, narrow_out=True,
                                 **flags)
     rows = np.arange(0, blk.live.shape[0], 3)
     _same_blob(JC.pack_outputs(ref), packed)
@@ -154,7 +157,7 @@ def store_block(tmp_path_factory):
     vcf2gdb.main([c.loader])
     args = torch_gdb_query._build_parser().parse_args(
         ["-j", c.query, "--produce-Broad-GVCF"])
-    _, qp, vid, store = jax_gdb_query.load_context(args, 0)
+    _, qp, vid, store = torch_gdb_query.load_context(args, 0)
     qc = make_query_config(qp, vid)
     return store_to_block(store, qc, interval=(0, c.region),
                           max_merged=4, return_meta=True)
@@ -208,8 +211,9 @@ def test_split_fetch_matches_full_fetch(store_block, ident_form):
 
 def test_host_identity_outputs_numpy_matches_native(monkeypatch):
     """The port's copy of host_identity_outputs: its numpy form equals
-    the shared native identity_outputs, over mixed / phased / ploidy /
-    width draws (tests/test_identity_native.py)."""
+    the port's native identity_outputs, and the JAX package's numpy
+    form equals both, over mixed / phased / ploidy / width draws
+    (tests/test_identity_native.py)."""
     if native_loader.get_lib() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(7)
@@ -248,8 +252,8 @@ def test_host_identity_outputs_numpy_matches_native(monkeypatch):
         widths = (int(rng.integers(1, 12)), int(rng.integers(2, 6)), wgt)
         nat = TC.host_identity_outputs(blk, rows, widths, phase, mixed)
         with monkeypatch.context() as m:
-            m.setattr(native_loader, "identity_outputs",
-                      lambda *a, **k: None)
+            for loader in (native_loader, jax_native_loader):
+                m.setattr(loader, "identity_outputs", lambda *a, **k: None)
             ref = TC.host_identity_outputs(blk, rows, widths, phase, mixed)
             jax_np = JC.host_identity_outputs(blk, rows, widths, phase,
                                               mixed)

@@ -15,7 +15,7 @@ from genomicsdb_tpu_torch.ops import cell_block as CB
 from genomicsdb_tpu_torch.ops import combine_step as TC
 from genomicsdb_tpu_torch.ops import fused_combine as FC
 
-from test_torch_combine_step import compare_outputs, make_block
+from test_torch_combine_step import compare_outputs, make_block, make_blocks
 
 
 def _jax_kernel_outputs(blk, m, p, phased, mixed, rt=8):
@@ -75,11 +75,11 @@ KERNEL_CASES = {
 @pytest.mark.parametrize("case", sorted(KERNEL_CASES))
 def test_twin_matches_pallas_kernel(case):
     kw = dict(KERNEL_CASES[case])
-    blk = make_block(**kw)
+    jblk, tblk = make_blocks(**kw)
     m, p = kw.get("m", 4), kw.get("ploidy", 2)
     phased, mixed = kw.get("phased", False), kw.get("mixed", False)
-    ref = _jax_kernel_outputs(blk, m, p, phased, mixed)
-    got = _twin_outputs(blk, m, p, phased, mixed)
+    ref = _jax_kernel_outputs(jblk, m, p, phased, mixed)
+    got = _twin_outputs(tblk, m, p, phased, mixed)
     assert set(ref) == set(got)
     for key, a in ref.items():
         b = got[key].numpy()
@@ -113,13 +113,13 @@ FUSED_CASES = {
 def test_combine_step_fused_matches_jax(case):
     kw, rt = FUSED_CASES[case]
     kw = dict(kw)
-    blk = make_block(**kw)
+    jblk, tblk = make_blocks(**kw)
     m, p = kw.get("m", 4), kw.get("ploidy", 2)
     flags = dict(max_merged=m, ploidy=p, gt_phase=kw.get("phased", False),
                  mixed_ploidy=kw.get("mixed", False))
-    ref = PC.combine_step_fused(blk, interpret=True, rt=rt, **flags)
+    ref = PC.combine_step_fused(jblk, interpret=True, rt=rt, **flags)
     assert ref is not None
-    got = FC.combine_step_fused(blk, "cpu", **flags)
+    got = FC.combine_step_fused(tblk, "cpu", **flags)
     assert got is not None
     compare_outputs(ref, got)
 
@@ -127,13 +127,13 @@ def test_combine_step_fused_matches_jax(case):
 def test_gates_route_to_the_general_path():
     """Blocks past the kernel's limits (m > 16, ploidy > 6, mixed ploidy
     without GT lengths) take the general combine_step and are counted."""
-    blk = make_block(S=4, C=32, R=1024, seed=9, m=17)
+    jblk, blk = make_blocks(S=4, C=32, R=1024, seed=9, m=17)
     assert FC.combine_step_fused(blk, "cpu", max_merged=17,
                                  ploidy=2) is None
     before = FC.combine_block.general_path_blocks
     got = FC.combine_block(blk, "cpu", max_merged=17, ploidy=2)
     assert FC.combine_block.general_path_blocks == before + 1
-    compare_outputs(JC.combine_step(*JC.block_to_args(blk), max_merged=17,
+    compare_outputs(JC.combine_step(*JC.block_to_args(jblk), max_merged=17,
                                     ploidy=2), got)
     mixed = make_block(S=4, C=32, R=1024, seed=9)
     assert FC.combine_step_fused(mixed, "cpu", max_merged=4, ploidy=2,

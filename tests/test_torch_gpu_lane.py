@@ -1,7 +1,10 @@
 """The port on an NVIDIA card: the CUDA kernel in its wide and narrow
 forms against its plain twin (bit-exact, cells with no live call
-included), and block queries on the card, with the fetch pack on and
-off, against the same query on the CPU.
+included) at synthetic shapes, at a ragged one (records and samples
+not multiples of the tile), at m 16 / ploidy 6 (PL in genotype chunks)
+and at the largest launch of the 1,000-sample block query; and block
+queries on the card, with the fetch pack on and off, against the same
+query on the CPU.
 
 Marked `gpu`; each test skips where torch sees no CUDA card (decided in
 the `cuda` fixture, never at import).  On a machine with a card:
@@ -30,8 +33,11 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _block(S, C, R, m, p, mixed, seed):
+def _block(S, C, R, m, p, mixed, seed, keep_b=None):
     blk = synthesize_cohort(S, C, R, seed=seed, max_merged=m, ploidy=p)
+    if keep_b is not None:
+        for name in ("inv_bs", "nr_bs", "rec_num_merged", "live"):
+            setattr(blk, name, getattr(blk, name)[:keep_b])
     rng = np.random.default_rng(seed + 1)
     B, S = blk.live.shape
     gone = rng.random((B, S)) < 0.05
@@ -49,22 +55,23 @@ def _block(S, C, R, m, p, mixed, seed):
     return blk
 
 
-SHAPES = [(64, 256, 16384, 4, 2, False), (16, 64, 4096, 16, 2, False),
-          (8, 64, 4096, 4, 6, False), (16, 64, 4096, 16, 3, True),
-          (8, 48, 4096, 4, 6, True)]
+# (S, C, R, m, p, mixed, records kept): the last two are ragged (999
+# samples, 1001 records against 16 x 16 tiles) and m 16 / ploidy 6
+SHAPES = [(64, 256, 16384, 4, 2, False, None),
+          (16, 64, 4096, 16, 2, False, None),
+          (8, 64, 4096, 4, 6, False, None),
+          (16, 64, 4096, 16, 3, True, None),
+          (8, 48, 4096, 4, 6, True, None),
+          (999, 128, 16384, 4, 2, False, 1001),
+          (4, 16, 512, 16, 6, True, 90)]
 
 
-def _check_kernel(cuda, S, C, R, m, p, mixed, **mode):
-    blk = _block(S, C, R, m, p, mixed, seed=S + m + p)
-    t = TC.block_to_tensors(blk, cuda)
-    args = (*t[:12], t[16], t[12], t[13], t[14], t[15],
-            t[18] if mixed else None)
-    kw = dict(max_merged=m, ploidy=p, gt_phase=mixed, mixed=mixed, **mode)
+def _check_args(args, **kw):
     before = (FC.fused_gather_remap.launches,
               FC.fused_gather_remap.narrow_launches)
     got = FC.fused_gather_remap(*args, **kw)
     torch.cuda.synchronize()
-    narrow = int(mode.get("narrow", False))
+    narrow = int(kw.get("narrow", False))
     assert (FC.fused_gather_remap.launches,
             FC.fused_gather_remap.narrow_launches) == (before[0] + 1,
                                                         before[1] + narrow)
@@ -77,22 +84,60 @@ def _check_kernel(cuda, S, C, R, m, p, mixed, **mode):
         assert torch.equal(g, r), key
 
 
-@pytest.mark.parametrize("S,C,R,m,p,mixed", SHAPES)
-def test_kernel_matches_twin(cuda, S, C, R, m, p, mixed):
-    _check_kernel(cuda, S, C, R, m, p, mixed)
+def _check_kernel(cuda, S, C, R, m, p, mixed, keep_b, **mode):
+    blk = _block(S, C, R, m, p, mixed, seed=S + m + p, keep_b=keep_b)
+    t = TC.block_to_tensors(blk, cuda)
+    args = (*t[:12], t[16], t[12], t[13], t[14], t[15],
+            t[18] if mixed else None)
+    _check_args(args, max_merged=m, ploidy=p, gt_phase=mixed, mixed=mixed,
+                **mode)
+
+
+@pytest.mark.parametrize("S,C,R,m,p,mixed,keep_b", SHAPES)
+def test_kernel_matches_twin(cuda, S, C, R, m, p, mixed, keep_b):
+    _check_kernel(cuda, S, C, R, m, p, mixed, keep_b)
 
 
 @pytest.mark.parametrize("scalars", [True, False])
-@pytest.mark.parametrize("S,C,R,m,p,mixed", SHAPES)
-def test_narrow_kernel_matches_twin(cuda, S, C, R, m, p, mixed, scalars):
-    _check_kernel(cuda, S, C, R, m, p, mixed, narrow=True,
+@pytest.mark.parametrize("S,C,R,m,p,mixed,keep_b", SHAPES)
+def test_narrow_kernel_matches_twin(cuda, S, C, R, m, p, mixed, keep_b,
+                                    scalars):
+    _check_kernel(cuda, S, C, R, m, p, mixed, keep_b, narrow=True,
                   narrow_scalars=scalars)
 
 
-def test_block_query_on_the_card(cuda, tmp_path):
-    from genomicsdb_tpu.tools import vcf2gdb
+def test_main_path_launch_matches_twin(cuda, tmp_path):
+    """The largest kernel launch of the 1,000-sample block query (its
+    store-wide slabs, as the query hands them over) in every form."""
     from genomicsdb_tpu_torch.testing import write_cohort
-    from genomicsdb_tpu_torch.tools import gdb_query
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
+    c = write_cohort(str(tmp_path), 1000, 4000, seed=0)
+    vcf2gdb.main([c.loader])
+    seen = []
+    launch = FC._launch
+
+    def recorder(*args, **kw):
+        seen.append((args, kw))
+        return launch(*args, **kw)
+
+    FC._launch = recorder
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            gdb_query.main(["-j", c.query, "--produce-Broad-GVCF",
+                            "--device", "cuda"])
+    finally:
+        FC._launch = launch
+    args, kw = max(seen, key=lambda a: a[0][12].numel())
+    assert args[12].shape[1] == 1000 and args[12].shape[0] >= 1024
+    base = {k: kw[k] for k in ("max_merged", "ploidy", "gt_phase",
+                               "mixed")}
+    for narrow, scalars in ((False, False), (True, False), (True, True)):
+        _check_args(args, **base, narrow=narrow, narrow_scalars=scalars)
+
+
+def test_block_query_on_the_card(cuda, tmp_path):
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
     c = write_cohort(str(tmp_path), 40, 300, seed=2)
     vcf2gdb.main([c.loader])
 
@@ -118,10 +163,9 @@ def test_packed_block_query_on_the_card(cuda, tmp_path):
     """The card's default: the narrow kernel on every block, the packed
     variant-row fetch through pinned memory; the text equals the CPU
     device's."""
-    from genomicsdb_tpu.tools import vcf2gdb
     from genomicsdb_tpu_torch.query import block_writer as BW
     from genomicsdb_tpu_torch.testing import write_cohort
-    from genomicsdb_tpu_torch.tools import gdb_query
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
     c = write_cohort(str(tmp_path), 40, 300, seed=2)
     vcf2gdb.main([c.loader])
 

@@ -19,7 +19,9 @@ from genomicsdb_tpu.ops import pallas_combine as PC
 from genomicsdb_tpu_torch.ops import combine_step as TC
 from genomicsdb_tpu_torch.ops import fused_combine as FC
 
-from test_torch_combine_step import compare_outputs, make_block
+from genomicsdb_tpu_torch.ops import cell_block as CB
+
+from test_torch_combine_step import compare_outputs, make_blocks
 
 # Pallas output row name -> the port's output key
 _ROW_KEYS = (("pl", "pl"), ("ad", "ad"), ("gt", "gt"), ("gq", "gq"),
@@ -122,11 +124,11 @@ def test_twin_matches_per_sample_pallas_kernel(case):
     """The raw [S, Vout, Bpad] output of `fused_gather_remap`
     (`_make_kernel`) equals the twin of the port's wide kernel."""
     kw = dict(PER_SAMPLE_CASES[case])
-    blk = make_block(**kw)
+    jblk, tblk = make_blocks(**kw)
     m, p, phased = kw.get("m", 4), kw.get("ploidy", 2), kw.get("phased",
                                                                False)
-    ref = _pallas_raw(blk, m, p, phased, rt=1)
-    _assert_raw_equal(ref, _twin(blk, m, p, phased))
+    ref = _pallas_raw(jblk, m, p, phased, rt=1)
+    _assert_raw_equal(ref, _twin(tblk, m, p, phased))
 
 
 NARROW_CASES = {
@@ -147,12 +149,12 @@ def test_narrow_twin_matches_pallas_kernel(case):
     included)."""
     kw, scalars = NARROW_CASES[case]
     kw = dict(kw)
-    blk = make_block(**kw)
+    jblk, tblk = make_blocks(**kw)
     m, p = kw.get("m", 4), kw.get("ploidy", 2)
     phased, mixed = kw.get("phased", False), kw.get("mixed", False)
-    ref = _pallas_raw(blk, m, p, phased, mixed, narrow=True,
+    ref = _pallas_raw(jblk, m, p, phased, mixed, narrow=True,
                       narrow_scalars=scalars)
-    got = _twin(blk, m, p, phased, mixed, narrow=True,
+    got = _twin(tblk, m, p, phased, mixed, narrow=True,
                 narrow_scalars=scalars)
     narrow_keys = ("pl", "ad", "gt") + (("gq", "dp_format", "min_dp")
                                         if scalars else ())
@@ -164,7 +166,7 @@ def test_narrow_twin_matches_pallas_kernel(case):
 
 
 def test_narrow_needs_narrow_for_scalars():
-    blk = make_block(S=3, C=16, R=512, seed=2)
+    _, blk = make_blocks(S=3, C=16, R=512, seed=2)
     with pytest.raises(ValueError, match="narrow_scalars needs narrow"):
         _twin(blk, 4, 2, narrow_scalars=True)
 
@@ -174,15 +176,17 @@ def test_combine_step_fused_narrow_matches_jax(mixed):
     """combine_step_fused(narrow_out=True) against the JAX one, output
     dict for output dict: int16 PL/AD/GT/GQ/DP/MIN_DP, the rest
     exact (tests/test_pallas_combine.py::test_fused_narrow_outputs)."""
-    blk = JC.synthesize_cohort(6, 48, 4096, seed=21)
+    jblk = JC.synthesize_cohort(6, 48, 4096, seed=21)
+    tblk = CB.synthesize_cohort(6, 48, 4096, seed=21)
     if mixed:
-        B, S = blk.live.shape
+        B, S = tblk.live.shape
         rng = np.random.default_rng(5)
-        blk.gt_len_bs = rng.integers(1, 3, size=(B, S)).astype(np.int32)
+        tblk.gt_len_bs = rng.integers(1, 3, size=(B, S)).astype(np.int32)
+        jblk.gt_len_bs = tblk.gt_len_bs.copy()
     flags = dict(max_merged=4, ploidy=2, mixed_ploidy=mixed)
-    ref = PC.combine_step_fused(blk, interpret=True, narrow_out=True,
+    ref = PC.combine_step_fused(jblk, interpret=True, narrow_out=True,
                                 **flags)
-    got = FC.combine_step_fused(blk, "cpu", narrow_out=True, **flags)
+    got = FC.combine_step_fused(tblk, "cpu", narrow_out=True, **flags)
     assert ref is not None and got is not None
     for k in ("pl", "ad", "gt", "gq", "dp_format", "min_dp"):
         assert got[k].dtype == torch.int16, k
@@ -193,29 +197,42 @@ def test_int16_overflow_takes_the_wide_kernel():
     """A block with a genuine int16 overflow in PL takes the wide form
     (counted), as the JAX gate does; one in GQ alone keeps PL/AD/GT
     narrow and GQ/DP/MIN_DP wide."""
-    blk = JC.synthesize_cohort(4, 40, 3000, seed=7)
+    blk = CB.synthesize_cohort(4, 40, 3000, seed=7)
     assert FC._narrow_inputs_ok(blk) and FC._narrow_scalars_ok(blk)
-    wide = JC.synthesize_cohort(4, 40, 3000, seed=7)
-    wide.pl = wide.pl.copy()
-    wide.pl[0, 0, 0] = 100_000
+
+    def both(edit):
+        """(JAX block, port block) with the same edit."""
+        pair = (JC.synthesize_cohort(4, 40, 3000, seed=7),
+                CB.synthesize_cohort(4, 40, 3000, seed=7))
+        for b in pair:
+            edit(b)
+        return pair
+
+    def big_pl(b):
+        b.pl = b.pl.copy()
+        b.pl[0, 0, 0] = 100_000
+
+    def big_gq(b):
+        b.gq = b.gq.copy()
+        b.gq[1, 2] = 40_000
+
+    jwide, wide = both(big_pl)
     assert not FC._narrow_inputs_ok(wide)
     before = FC.combine_block.wide_blocks_when_packing
     got = FC.combine_block(wide, "cpu", max_merged=4, ploidy=2,
                            narrow_out=True)
     assert FC.combine_block.wide_blocks_when_packing == before + 1
     assert got["pl"].dtype == torch.int32 and got["gq"].dtype == torch.int32
-    compare_outputs(PC.combine_step_fused(wide, max_merged=4, ploidy=2,
+    compare_outputs(PC.combine_step_fused(jwide, max_merged=4, ploidy=2,
                                           interpret=True, narrow_out=True),
                     got)
-    gq = JC.synthesize_cohort(4, 40, 3000, seed=7)
-    gq.gq = gq.gq.copy()
-    gq.gq[1, 2] = 40_000
+    jgq, gq = both(big_gq)
     assert FC._narrow_inputs_ok(gq) and not FC._narrow_scalars_ok(gq)
     got = FC.combine_block(gq, "cpu", max_merged=4, ploidy=2,
                            narrow_out=True)
     assert FC.combine_block.wide_blocks_when_packing == before + 1
     assert got["pl"].dtype == torch.int16 and got["gq"].dtype == torch.int32
-    compare_outputs(PC.combine_step_fused(gq, max_merged=4, ploidy=2,
+    compare_outputs(PC.combine_step_fused(jgq, max_merged=4, ploidy=2,
                                           interpret=True, narrow_out=True),
                     got)
 
@@ -225,7 +242,7 @@ def test_range_check_cache_follows_the_slabs():
     own keys, together with the slabs they read: the JAX package's
     entries are neither read nor written, and a block whose slabs are
     other arrays is checked anew."""
-    blk = JC.synthesize_cohort(4, 40, 3000, seed=7)
+    blk = CB.synthesize_cohort(4, 40, 3000, seed=7)
     blk._dense_layout = {"_narrow_ok": False, "_narrow_scalars_ok": False}
     assert FC._narrow_inputs_ok(blk) and FC._narrow_scalars_ok(blk)
     lay = blk._dense_layout
@@ -262,17 +279,17 @@ def test_med_rows_matches_jax(path):
     combine paths, as the JAX ones do: the [F, len(med_rows)] results
     and the full-width passthroughs are equal."""
     m = 20 if path == "general_m20" else 4
-    blk = make_block(S=5, C=40, R=3000, seed=7, m=m)
+    jblk, blk = make_blocks(S=5, C=40, R=3000, seed=7, m=m)
     mr = _med_rows(blk, seed=3)
     flags = dict(max_merged=m, ploidy=2)
     if path.startswith("fused"):
         narrow = path == "fused_narrow"
-        ref = PC.combine_step_fused(blk, interpret=True, med_rows=mr,
+        ref = PC.combine_step_fused(jblk, interpret=True, med_rows=mr,
                                     narrow_out=narrow, **flags)
         got = FC.combine_step_fused(blk, "cpu", med_rows=mr,
                                     narrow_out=narrow, **flags)
     else:
-        ref = JC.combine_step(*JC.block_to_args(blk), med_rows=mr, **flags)
+        ref = JC.combine_step(*JC.block_to_args(jblk), med_rows=mr, **flags)
         got = TC.combine_step(*TC.block_to_tensors(blk, "cpu"),
                               med_rows=mr, **flags)
     assert got["info_median"].shape[1] == len(mr)

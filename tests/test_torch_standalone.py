@@ -1,0 +1,171 @@
+"""The port stands alone: it imports nothing of `jax` or `genomicsdb_tpu`,
+imports and queries a cohort with both blocked, writes the same store
+files as the JAX package's importer, and serves every host query mode
+with the JAX tool's bytes.
+
+Objects never cross between the packages: each side loads the store,
+the vid mapping and the query configuration from the same files with
+its own loaders.
+"""
+
+import ast
+import contextlib
+import io
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+from genomicsdb_tpu.tools import gdb_query as jax_gdb_query
+from genomicsdb_tpu.tools import vcf2gdb as jax_vcf2gdb
+from genomicsdb_tpu_torch.testing import write_cohort
+from genomicsdb_tpu_torch.tools import gdb_query as torch_gdb_query
+from genomicsdb_tpu_torch.tools import vcf2gdb as torch_vcf2gdb
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "genomicsdb_tpu_torch")
+FORBIDDEN = ("genomicsdb_tpu", "jax", "jaxlib")
+# the one field of a store that differs between two imports: the
+# fragment directory is named by the wall clock at write time
+# (store/workspace.py, f"fragment_{time.time_ns()}")
+FRAGMENT_TIME_NS = re.compile(r"fragment_\d+")
+
+
+def _run(main, argv, **kw) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv, **kw)
+    return buf.getvalue()
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _imported_names(tree):
+    """Top-level package names of every absolute import, and of every
+    constant string given to importlib.import_module / __import__."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else \
+                getattr(f, "id", "")
+            if name in ("import_module", "__import__"):
+                yield node.lineno, node.args[0].value
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 40
+    bad = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for line, name in _imported_names(tree):
+            if name.split(".")[0] in FORBIDDEN:
+                bad.append(f"{os.path.relpath(path, ROOT)}:{line}: {name}")
+    assert not bad, "\n".join(bad)
+
+
+@pytest.fixture(scope="module")
+def cohort(tmp_path_factory):
+    """A tiny cohort imported with the port's vcf2gdb."""
+    c = write_cohort(str(tmp_path_factory.mktemp("cohort")), 8, 90, seed=4,
+                     n_groups=2)
+    torch_vcf2gdb.main([c.loader])
+    return c
+
+
+def test_import_and_query_with_jax_and_the_jax_package_blocked(tmp_path):
+    """In a fresh interpreter where `import jax` and `import
+    genomicsdb_tpu` fail: the port writes the cohort, imports it with its
+    own vcf2gdb and queries it with its own gdb_query on the CPU; the
+    text equals the JAX tool's on the store the port wrote."""
+    c = write_cohort(str(tmp_path), 8, 90, seed=6, n_groups=2)
+    argv = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cpu"]
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['genomicsdb_tpu'] = None\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb\n"
+        f"vcf2gdb.main([{c.loader!r}])\n"
+        f"gdb_query.main({argv!r})\n"
+        "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['genomicsdb_tpu'] is None\n"
+        "assert not [m for m in sys.modules if m.startswith(("
+        "'jax.', 'genomicsdb_tpu.'))]\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert len(res.stdout.splitlines()) > 100
+    jax_text = _run(jax_gdb_query.main, ["-j", c.query, "--produce-Broad-GVCF",
+                                         "--engine", "sequential"])
+    assert res.stdout == jax_text
+
+
+def _store_files(workspace):
+    """{path relative to the workspace, fragment time masked: bytes}."""
+    out = {}
+    for d, _, files in os.walk(workspace):
+        for f in files:
+            path = os.path.join(d, f)
+            rel = FRAGMENT_TIME_NS.sub("fragment_<time_ns>",
+                                       os.path.relpath(path, workspace))
+            with open(path, "rb") as fh:
+                out[rel] = fh.read()
+    return out
+
+
+def test_port_vcf2gdb_writes_the_jax_package_store(tmp_path):
+    """The same cohort imported by each package's vcf2gdb gives the same
+    store, file by file and byte for byte; only the fragment directory's
+    name (its write time in ns) is masked."""
+    a = write_cohort(str(tmp_path / "jax"), 8, 90, seed=4, n_groups=2)
+    b = write_cohort(str(tmp_path / "port"), 8, 90, seed=4, n_groups=2)
+    jax_vcf2gdb.main([a.loader])
+    torch_vcf2gdb.main([b.loader])
+    ref, got = _store_files(a.workspace), _store_files(b.workspace)
+    assert len(ref) > 30
+    assert any("fragment_<time_ns>" in k for k in ref)
+    assert sorted(ref) == sorted(got)
+    for rel in ref:
+        assert ref[rel] == got[rel], rel
+
+
+# every mode the port's gdb_query serves on the host, and the sequential
+# engine; the JAX tool runs the same command line
+HOST_MODES = {
+    "calls": ["--print-calls"],
+    "csv": ["--print-csv"],
+    "allele_count": ["--print-AC"],
+    "interesting_positions": ["--produce-interesting-positions"],
+    "histogram": ["--produce-histogram", "--bin-size", "500",
+                  "--num-equi-bins", "4"],
+    "variants": [],
+    "cotton_json": ["-O", "Cotton-JSON"],
+    "positions_json": ["-O", "Positions-JSON"],
+    "sequential": ["--produce-Broad-GVCF", "--engine", "sequential"],
+    "java_vcf": ["--produce-Broad-GVCF", "--java-vcf"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(HOST_MODES))
+def test_host_mode_equals_the_jax_tool(cohort, mode):
+    argv = ["-j", cohort.query_head] + HOST_MODES[mode]
+    port = _run(torch_gdb_query.main, argv + ["--device", "cpu"])
+    ref = _run(jax_gdb_query.main, argv)
+    assert port.strip()
+    assert port == ref
