@@ -42,6 +42,23 @@ Every phase passes or the script exits non-zero:
      and byte bound of every launch; the largest launch's inputs (the
      store-wide slabs) are held against the twin in all three forms and
      timed.
+  5. Serving: the port's `QueryStreamServer` in this process on cuda:0
+     answers 24 seeded 10 kb intervals of the same cohort in three
+     lanes, each behind warm-up queries: a persistent client with the
+     serving index off (the engine lane: every block must launch the
+     narrow kernel; the host-to-device bytes of its first and second
+     warm-up query are printed), a persistent client with the index on
+     (its build timed on its own; no block may reach the device
+     combine) and one-shot connections.  Every response must be
+     byte-identical across lanes, the engine after the build, a
+     cpu-device server (3 intervals) and four concurrent persistent
+     clients (on a cold server with the index off, then served).  Prints
+     p50/p90 per lane, the mean response bytes, the engine lane's
+     launches (padded against real records) and holds its most frequent
+     launch against the twin in all three forms.  Then `gdb_query -p
+     65536` on cuda must give phase 3's text, and `gdb_query --ooc -s
+     <a quarter of the store>` must too, over more than one window and
+     with a lower device-memory high-water mark than the in-RAM query.
 
 Times are CUDA events around back-to-back calls after a warm-up.  A
 kernel's time is that of launches bound once (only a ctypes call between
@@ -70,6 +87,7 @@ KERNEL_SOURCE = "genomicsdb_tpu_torch/csrc/fused_gather_remap.cu"
 # narrow form, and _make_kernel (the wide, non-mixed function)
 PALLAS = "genomicsdb_tpu/ops/pallas_combine.py"
 E2E_SAMPLES, E2E_RECORDS = 1000, 4000
+SERVING_QUERIES, SERVING_BP = 24, 10_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # the kernel's forms: (narrow, narrow_scalars)
 FORMS = {"wide": (False, False), "narrow": (True, False),
@@ -449,7 +467,16 @@ def phase_end_to_end(torch, card):
                              "engine over the head interval")
     print(f"block == sequential over columns {c.head_interval} "
           f"({n_head} records)")
-    return c_on, c_off, c
+    return c_on, c_off, c, on1
+
+
+def _launch_key(args, kw):
+    pl, live = args[0], args[12]
+    form = "narrow+scalars" if kw["narrow_scalars"] else \
+        "narrow" if kw["narrow"] else "wide"
+    return (tuple(live.shape), pl.shape[1], pl.shape[2], args[2].shape[2],
+            kw["max_merged"], kw["ploidy"], args[4].shape[2],
+            args[9].shape[0], args[10].shape[0], args[11].shape[0], form)
 
 
 def phase_main_path(torch, c, card):
@@ -477,14 +504,7 @@ def phase_main_path(torch, c, card):
     for args, kw in seen:
         nbytes, cells = _launch_bytes(torch, args, kw)
         total += nbytes
-        pl, live = args[0], args[12]
-        form = "narrow+scalars" if kw["narrow_scalars"] else \
-            "narrow" if kw["narrow"] else "wide"
-        key = (tuple(live.shape), pl.shape[1], pl.shape[2],
-               args[2].shape[2], kw["max_merged"], kw["ploidy"],
-               args[4].shape[2], args[9].shape[0], args[10].shape[0],
-               args[11].shape[0], form)
-        shapes.setdefault(key, []).append((nbytes, cells))
+        shapes.setdefault(_launch_key(args, kw), []).append((nbytes, cells))
     print(f"main path: {len(seen)} kernel launches, {total} bytes, "
           f"bound {_bound_ms(total):.4f} ms in all [{card}]")
     for (bs, C, G_in, A_in, M, p, gt_w, F, Fi, Fs, form), v in sorted(
@@ -500,6 +520,305 @@ def phase_main_path(torch, c, card):
     B, S = args[12].shape
     label = f"main-path launch B={B} S={S} C={args[0].shape[1]}"
     return _forms_vs_twin(torch, label, args, base, reps_k=50, reps_t=3)
+
+
+def _set_serving_index(on: bool) -> None:
+    if on:
+        os.environ.pop("GENOMICSDB_TPU_SERVING_INDEX", None)
+    else:
+        os.environ["GENOMICSDB_TPU_SERVING_INDEX"] = "0"
+
+
+def _timed_lane(torch, query, docs):
+    """(sorted latencies in s, responses) of one query per document."""
+    lats, outs = [], []
+    for d in docs:
+        t0 = time.perf_counter()
+        outs.append(query(d))
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+    return sorted(lats), outs
+
+
+def _pct_ms(lats, q):
+    return 1e3 * lats[min(len(lats) - 1, int(q * len(lats)))]
+
+
+def _concurrent(SS, addr, docs, want, n_clients=4, per_client=6):
+    """n_clients persistent clients in threads, each cycling through the
+    documents; returns the mismatches and errors."""
+    import threading
+    errors = []
+
+    def client(tid):
+        try:
+            with SS.QueryStreamClient(*addr, timeout=600) as cli:
+                for k in range(per_client):
+                    i = (tid + k) % len(docs)
+                    if cli.query(docs[i]) != want[i]:
+                        errors.append(f"client {tid}: query {k} (doc {i}) "
+                                      "differs")
+        except Exception as e:          # reported by the caller
+            errors.append(f"client {tid}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        errors.append("a client thread did not finish")
+    return errors, time.perf_counter() - t0
+
+
+def _device_peak(torch, argv):
+    """(text, bytes, s): a query's device-memory high-water mark above
+    what was allocated before it."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    text = _query(argv)
+    torch.cuda.synchronize()
+    return text, torch.cuda.max_memory_allocated() - base, \
+        time.perf_counter() - t0
+
+
+def phase_serving(torch, np, c, card, main_text):
+    """The interval-serving path on the card: the port's
+    QueryStreamServer in this process on cuda:0, seeded 10 kb intervals
+    in three lanes (engine, served from the index, one-shot), four
+    concurrent clients, the CPU device, the paged stream and the
+    out-of-core windows; holds the engine lane's most frequent launch
+    against the twin in every form."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    from genomicsdb_tpu_torch.ops.combine_step import to_tensor
+    from genomicsdb_tpu_torch.query import driver as D
+    from genomicsdb_tpu_torch.query import serving_index as si
+    from genomicsdb_tpu_torch.query import stream_server as SS
+    from genomicsdb_tpu_torch.store import workspace as ws
+    from genomicsdb_tpu_torch.store.fragment_v2 import read_manifest
+    rng = np.random.default_rng(4)
+    span = c.region - SERVING_BP
+    warm_los = [int(x) for x in rng.integers(0, span, 2)]
+    los = [int(x) for x in rng.integers(0, span, SERVING_QUERIES)]
+
+    def doc(lo):
+        return {"workspace": c.workspace, "array_name": c.array,
+                "vid_mapping_file": c.vid,
+                "callset_mapping_file": c.callsets, "attributes": [],
+                "query_column_ranges": [{"range_list": [
+                    {"low": lo, "high": lo + SERVING_BP - 1}]}]}
+
+    docs = [doc(lo) for lo in los]
+    srv = SS.QueryStreamServer(port=0, device="cuda:0")
+    srv.start_background()
+    addr = srv.address
+    seen, build = [], {}
+    try:
+        # lane 1, the engine (index off): two warm-up queries, the first
+        # of which builds the store layout and uploads its slabs
+        _set_serving_index(False)
+        with SS.QueryStreamClient(*addr, timeout=600) as cli:
+            h2d = []
+            for lo in warm_los:
+                to_tensor.h2d_bytes = 0
+                t0 = time.perf_counter()
+                cli.query(doc(lo))
+                h2d.append((to_tensor.h2d_bytes, time.perf_counter() - t0))
+            launch = FC._launch
+
+            def recorder(*args, **kw):
+                seen.append((args, kw))
+                return launch(*args, **kw)
+
+            FC._launch = recorder
+            try:
+                for obj, name in _counters():
+                    setattr(obj, name, 0)
+                lat_e, out_e = _timed_lane(torch, cli.query, docs)
+                c_eng = {name: getattr(obj, name)
+                         for obj, name in _counters()}
+            finally:
+                FC._launch = launch
+        print(f"serving: {SERVING_QUERIES} seeded {SERVING_BP}-bp "
+              f"intervals over columns 0..{c.region} of the "
+              f"{E2E_SAMPLES}-sample cohort, socket server on cuda:0 "
+              f"[{card}]")
+        print(f"serving warm-up, engine lane: first query {h2d[0][0]} "
+              f"bytes host-to-device in {h2d[0][1]:.3f} s (store layout, "
+              f"device slabs, int16 range check), second {h2d[1][0]} bytes "
+              f"in {h2d[1][1]:.3f} s")
+        print(f"serving engine lane counts: {c_eng}")
+        if not (c_eng["narrow_launches"] == c_eng["launches"]
+                == c_eng["blocks"] >= SERVING_QUERIES
+                and c_eng["general_path_blocks"] == 0
+                and c_eng["wide_blocks_when_packing"] == 0):
+            raise AssertionError("serving engine lane: expected one narrow "
+                                 f"kernel launch per block: {c_eng}")
+
+        # lane 2, served from the index: the second warm-up query builds
+        # it (timed on its own, BCF2 encoding apart)
+        orig_build, orig_enc = si.build_index, si.ServingIndex.ensure_bcf
+
+        def timed_build(*a, **kw):
+            t0 = time.perf_counter()
+            idx = orig_build(*a, **kw)
+            build["build_s"] = time.perf_counter() - t0
+            if idx is not None:
+                build["records"] = len(idx.starts)
+                build["text_bytes"] = len(idx.text_blob)
+            return idx
+
+        def timed_enc(self, *a, **kw):
+            t0 = time.perf_counter()
+            fresh = self.bcf_blob is None
+            ok = orig_enc(self, *a, **kw)
+            if fresh:
+                build["encode_s"] = time.perf_counter() - t0
+                build["bcf_bytes"] = len(self.bcf_blob)
+            return ok
+
+        _set_serving_index(True)
+        si.build_index, si.ServingIndex.ensure_bcf = timed_build, timed_enc
+        try:
+            with SS.QueryStreamClient(*addr, timeout=600) as cli:
+                for lo in warm_los:
+                    cli.query(doc(lo))
+                for obj, name in _counters():
+                    setattr(obj, name, 0)
+                lat_s, out_s = _timed_lane(torch, cli.query, docs)
+                c_srv = {name: getattr(obj, name)
+                         for obj, name in _counters()}
+        finally:
+            si.build_index, si.ServingIndex.ensure_bcf = orig_build, \
+                orig_enc
+        if "records" not in build:
+            raise AssertionError("serving: the index was never built")
+        print(f"serving index build: {build['build_s']:.3f} s for "
+              f"{build['records']} records ({build['text_bytes']} text "
+              f"bytes), BCF2 encoding {build['encode_s']:.3f} s "
+              f"({build['bcf_bytes']} bytes) [{card}]")
+        if c_srv["launches"] or c_srv["blocks"]:
+            raise AssertionError("serving: the served lane reached the "
+                                 f"device combine: {c_srv}")
+
+        # lane 3, one-shot connections
+        SS.read_query_stream(*addr, doc(warm_los[0]), timeout=600)
+        lat_o, out_o = _timed_lane(
+            torch, lambda d: SS.read_query_stream(*addr, d, timeout=600),
+            docs)
+        if not (out_e == out_s == out_o):
+            raise AssertionError("serving: the engine, served and one-shot "
+                                 "lanes differ")
+        mean_bytes = sum(len(x) for x in out_e) / len(out_e)
+        for label, lats in (("engine (persistent, index off)", lat_e),
+                            ("served (persistent, index on)", lat_s),
+                            ("one-shot (index on)", lat_o)):
+            print(f"serving lane {label}: p50 {_pct_ms(lats, 0.5):.3f} ms, "
+                  f"p90 {_pct_ms(lats, 0.9):.3f} ms, min "
+                  f"{1e3 * lats[0]:.3f} ms, max {1e3 * lats[-1]:.3f} ms "
+                  f"[{card}]")
+        print(f"serving: mean response {mean_bytes:.1f} bytes; every lane "
+              "byte-identical")
+
+        # no stale device state after the index build: the engine again
+        _set_serving_index(False)
+        with SS.QueryStreamClient(*addr, timeout=600) as cli:
+            again = [cli.query(d) for d in docs[:3]]
+        if again != out_e[:3]:
+            raise AssertionError("serving: the engine after the index "
+                                 "build differs")
+        cpu = SS.QueryStreamServer(port=0, device="cpu")
+        cpu.start_background()
+        try:
+            on_cpu = [SS.read_query_stream(*cpu.address, d, timeout=900)
+                      for d in docs[:3]]
+        finally:
+            cpu.shutdown()
+        if on_cpu != out_e[:3]:
+            raise AssertionError("serving: the cuda engine lane differs "
+                                 "from a cpu-device server")
+        print("serving: engine lane == cpu-device server over 3 intervals; "
+              "engine after the build == before")
+
+        # four concurrent persistent clients: the engine on a fresh
+        # server (its layout, slabs and range check built under them),
+        # then the index on the first server
+        fresh = SS.QueryStreamServer(port=0, device="cuda:0")
+        fresh.start_background()
+        try:
+            errs, dt = _concurrent(SS, fresh.address, docs, out_e)
+        finally:
+            fresh.shutdown()
+        _set_serving_index(True)
+        errs2, dt2 = _concurrent(SS, addr, docs, out_e)
+        if errs or errs2:
+            raise AssertionError("serving, concurrent clients: "
+                                 + "; ".join(errs + errs2))
+        print(f"serving: 4 concurrent persistent clients x 6 queries each "
+              f"== single-client bytes: engine on a cold server {dt:.3f} s, "
+              f"served {dt2:.3f} s [{card}]")
+    finally:
+        _set_serving_index(True)
+        srv.shutdown()
+    del srv
+
+    # the serving lane's kernel launches, as the main path's
+    shapes = {}
+    for args, kw in seen:
+        live = args[12]
+        real = int((live >= 0).any(dim=1).sum())
+        shapes.setdefault(_launch_key(args, kw), []).append(
+            (real, _launch_bytes(torch, args, kw)[0], args, kw))
+    print(f"serving engine lane: {len(seen)} kernel launches [{card}]")
+    for key, v in sorted(shapes.items(), key=lambda kv: -len(kv[1])):
+        (bs, C, G_in, A_in, M, p, gt_w, F, Fi, Fs, form) = key
+        reals = [x[0] for x in v]
+        print(f"  {len(v)} x B={bs[0]} (padded; real records "
+              f"{min(reals)}..{max(reals)}, mean "
+              f"{sum(reals) / len(reals):.1f}) S={bs[1]} C={C} "
+              f"G_in={G_in} A_in={A_in} M={M} ploidy={p} gt_w={gt_w} "
+              f"F={F} Fi={Fi} Fs={Fs} {form}: bytes "
+              f"{min(x[1] for x in v)}..{max(x[1] for x in v)}")
+    key, v = max(shapes.items(), key=lambda kv: len(kv[1]))
+    _, _, args, kw = v[0]
+    base = {k: kw[k] for k in ("max_merged", "ploidy", "gt_phase",
+                               "mixed")}
+    B, S = args[12].shape
+    _forms_vs_twin(torch, f"serving launch B={B} S={S} "
+                   f"C={args[0].shape[1]}", args, base, reps_k=50, reps_t=3)
+    del seen, shapes, args, v
+
+    # the paged stream and the out-of-core windows through gdb_query
+    paged = _query(["-j", c.query, "--produce-Broad-GVCF", "--device",
+                    "cuda", "-p", "65536"])
+    if paged != main_text:
+        raise AssertionError("gdb_query -p 65536 differs from the "
+                             "one-shot text")
+    frags = ws._fragment_paths(c.workspace, c.array)
+    seg = read_manifest(frags[0])["total_bytes"] // 4
+    base_argv = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]
+    in_ram, peak_ram, t_ram = _device_peak(torch, base_argv)
+    D.iter_vcf_query_block.ooc_windows = 0
+    ooc, peak_ooc, t_ooc = _device_peak(
+        torch, base_argv + ["--ooc", "-s", str(seg)])
+    windows = D.iter_vcf_query_block.ooc_windows
+    print(f"gdb_query -p 65536 on cuda == the one-shot text; --ooc -s {seg}: "
+          f"{windows} windows in {t_ooc:.3f} s, device memory high-water "
+          f"{peak_ooc} bytes against {peak_ram} bytes in RAM "
+          f"({t_ram:.3f} s) [{card}]")
+    if not (ooc == in_ram == main_text and windows > 1):
+        raise AssertionError(f"--ooc: {windows} windows, text equal: "
+                             f"{ooc == main_text}")
+    if not peak_ooc < peak_ram:
+        raise AssertionError("--ooc: the out-of-core device-memory mark "
+                             "is not below the in-RAM query's")
 
 
 def phase_profile(torch, c, card, out_dir):
@@ -568,8 +887,9 @@ def main() -> int:
     dev = torch.device("cuda:0")
     card = phase_environment(torch)
     phase_kernel_vs_twin(torch, np, dev)
-    c_on, c_off, cohort = phase_end_to_end(torch, card)
+    c_on, c_off, cohort, main_text = phase_end_to_end(torch, card)
     main = phase_main_path(torch, cohort, card)
+    phase_serving(torch, np, cohort, card, main_text)
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))
 

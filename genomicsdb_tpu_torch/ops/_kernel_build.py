@@ -8,7 +8,9 @@ one shared library with a plain C interface, at first use:
 
 The library lands in `build/genomicsdb_tpu_torch/` under the checkout,
 named by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads the cached file.  Nothing is compiled when a
+and an unchanged one loads the cached file.  The first build runs under
+a lock: threads of one process (the stream server's connections) that
+launch at once build and load it once.  Nothing is compiled when a
 module is imported: the CPU test suite imports every module on machines
 with no nvcc.
 """
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from functools import lru_cache
@@ -32,6 +35,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genomicsdb_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_BUILD_LOCK = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -66,10 +70,15 @@ def _source_hash(srcs) -> str:
     return h.hexdigest()[:16]
 
 
-@lru_cache(maxsize=1)
 def load_library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; raises when nvcc
-    is missing or the build fails."""
+    """Build (if needed) and load the kernel library, once per process;
+    raises when nvcc is missing or the build fails."""
+    with _BUILD_LOCK:
+        return _load_library()
+
+
+@lru_cache(maxsize=1)
+def _load_library() -> KernelLibrary:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")

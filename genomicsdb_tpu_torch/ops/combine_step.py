@@ -278,11 +278,18 @@ def _slab_tensors(blk, slabs, device) -> tuple:
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     """numpy -> tensor on `device` (read-only arrays, e.g. memory-mapped
-    store columns, are copied first: torch wants writable memory)."""
+    store columns, are copied first: torch wants writable memory).
+    Counts the bytes copied to a device other than the CPU in
+    `to_tensor.h2d_bytes`."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()
+    if torch.device(device).type != "cpu":
+        to_tensor.h2d_bytes += a.nbytes
     return torch.from_numpy(a).to(device)
+
+
+to_tensor.h2d_bytes = 0
 
 
 # ---------------- device->host fetch compaction ----------------

@@ -3,11 +3,12 @@
 The host query types (`run_calls_query`, `run_vcf_query`, the sequential
 combined-gVCF oracle, `run_java_vcf_query`, `run_variants_query`) and
 the config helpers are copies of those of `genomicsdb_tpu.query.driver`.
-The combined-gVCF block engine (`run_vcf_query_block`) runs the port's
-device combine, with an explicit torch `device` on every entry point.
-The serving index and out-of-core windows are not ported yet (the
-port's `gdb_query` serves an out-of-core store from its memory-mapped
-view).
+The combined-gVCF block engine (`run_vcf_query_block`,
+`iter_vcf_query_block`, the paged `run_vcf_query_paged`) runs the
+port's device combine, with an explicit torch `device` on every entry
+point; it streams an out-of-core store in column windows and serves
+repeated queries of a store from the materialized serving index, as
+the JAX driver does.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..vcf.fasta import ReferenceGenome
 from ..vcf.header import (build_header_lines, chrom_line,
                           header_lines_cached, load_template)
 from . import json_output
+from . import serving_index as si
 from .block_writer import render_block_vcf_pipelined
 from .scan import scan_and_operate
 from .vcf_writer import CombineToVCF
@@ -168,7 +170,19 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
                          coalesce: bool = False,
                          pack: Optional[bool] = None):
     """Lazy form of run_vcf_query_block: yields header + record lines
-    chunk by chunk (record-aligned blocks)."""
+    chunk by chunk (record-aligned blocks), so streaming consumers
+    (CombinedRecordStream, the socket stream server) ride the block
+    engine on `device` without materializing the whole result.
+
+    `store` may be a ColumnarStore (in-RAM / memory-mapped) or an
+    out-of-core fragment_v2.OocArray: then each interval is served in
+    memory-bounded column windows (segment_size granularity) counted in
+    `iter_vcf_query_block.ooc_windows`; each window is a store of its
+    own, so its layout and device slabs go with it, and the pipelined
+    chunks keep at most the previous window alive.  Window edges fall
+    on cell-start columns, so the output is byte-identical to an in-RAM
+    query.  A ColumnarStore consults the serving index first."""
+    from ..store.fragment_v2 import OocArray
     ref_genome = ReferenceGenome(reference_path) if reference_path else None
     sample_names = [vid.callset_name(r) for r in qc.rows_to_query]
     filter_names = {info.field_idx: name
@@ -178,18 +192,60 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
         yield chrom_line(sample_names, qc.sites_only_query)
     intervals = qc.column_intervals if qc.column_intervals \
         else [(0, INT64_MAX - 2)]
+    if isinstance(store, OocArray):
+        lo0, hi0 = store.column_bounds()
+        for iv in intervals:
+            # clip to the data's column bounds: no record can render
+            # outside them, and windows must not walk empty space
+            lo, hi = max(int(iv[0]), lo0), min(int(iv[1]), hi0)
+            if lo > hi:
+                continue
+            for wlo, whi, wstore in store.windows((lo, hi)):
+                iter_vcf_query_block.ooc_windows += 1
+                yield from _iter_interval_blocks(
+                    wstore, (wlo, whi), qc, qp, vid, device, ref_genome,
+                    reference_path, filter_names, max_merged,
+                    max_records_per_block, coalesce, pack)
+        return
+    # materialized serving: repeated queries of one signature against an
+    # immutable store slice the full-store combined text instead of
+    # recomputing (query/serving_index.py — the GATK/Spark split-serving
+    # pattern); the build is non-reentrant, so the index's own
+    # full-store build runs through the engine path below
+    idx_srv = None
+    if isinstance(store, ColumnarStore):
+        idx_srv = si.lookup_for_query(store, qc, qp, vid, device,
+                                      template_path, reference_path,
+                                      pack=pack)
     for iv in intervals:
+        if idx_srv is not None:
+            def edge_fn(lo, hi):
+                return si.engine_record_lines(store, qc, qp, vid, device,
+                                              reference_path, lo, hi,
+                                              pack=pack)
+            served = idx_srv.serve_text(int(iv[0]), int(iv[1]), edge_fn,
+                                        si.make_ref_base(ref_genome))
+            if coalesce:
+                yield from served
+            else:
+                for chunk in served:
+                    yield from (ln for ln in chunk.split("\n") if ln)
+            continue
         yield from _iter_interval_blocks(
             store, iv, qc, qp, vid, device, ref_genome, reference_path,
             filter_names, max_merged, max_records_per_block, coalesce,
             pack)
 
 
+iter_vcf_query_block.ooc_windows = 0
+
+
 def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
                           reference_path, filter_names, max_merged,
                           max_records_per_block, coalesce, pack):
-    """Record lines of ONE interval — the chunked, pipelined block-engine
-    body."""
+    """Record lines of ONE interval on ONE (window) store — the chunked,
+    pipelined block-engine body shared by in-RAM and out-of-core
+    stores."""
 
     def make_seq_fn():
         def seq(lo, hi):
@@ -252,3 +308,18 @@ def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
         pending = g
     if pending is not None:
         yield from next(pending)
+
+
+def run_vcf_query_paged(store, qc: QueryConfig, qp: QueryParams,
+                        vid: VidMapper, device, page_size: int,
+                        template_path=None, reference_path=None,
+                        pack: Optional[bool] = None):
+    """Paged production of the combined VCF on `device` (the
+    reference's resumable VariantQueryProcessorScanState + RWBuffer
+    '-p page_size' mode, gt_mpi_gather.cc:349-362).  Yields byte pages
+    lazily; their concatenation is byte-identical to
+    run_vcf_query_block."""
+    from .stream import CombinedRecordStream
+    stream = CombinedRecordStream(store, qc, qp, vid, device,
+                                  template_path, reference_path, pack=pack)
+    yield from stream.pages(page_size)

@@ -9,6 +9,10 @@ it with either package's `vcf2gdb` and query it with either
 package's `gdb_query`.  Modelled on
 `genomicsdb_tpu.tools.scaling_bench._write_cohort`.
 
+The drawn genome is written beside the cohort as a FASTA (contig `1`),
+so reference-base lookups (the REF of a record clipped at a query
+boundary) have a reference to read.
+
 Each group's records tile the same region: reference blocks (`END=`) of
 group-specific lengths around variant sites drawn from one shared pool,
 so groups that carry the same site with different ALT alleles merge
@@ -72,7 +76,7 @@ class Cohort:
     """Paths of a written cohort.  `region` is the last column any
     record covers (0-based, inclusive); `head_interval` the column range
     that holds the first ~300 record starts of the combined cohort
-    (queried by `query_head`)."""
+    (queried by `query_head`); `fasta` the cohort's reference genome."""
     dir: str
     vcfs: List[str]
     vid: str
@@ -85,6 +89,7 @@ class Cohort:
     n_samples: int
     region: int
     head_interval: tuple
+    fasta: str
 
 
 def _cell_pool(rng, n: int, n_alleles: int, ref_block: bool) -> np.ndarray:
@@ -158,11 +163,14 @@ def _group_lines(rng, genome: str, sites, group_samples: int,
 
 
 def write_cohort(out_dir: str, n_samples: int, n_records: int,
-                 seed: int = 0, n_groups: int = 0) -> Cohort:
+                 seed: int = 0, n_groups: int = 0,
+                 deletions: bool = True) -> Cohort:
     """Write the cohort and its JSON configuration under `out_dir`.
     `n_records` is the record count of each group's file; `n_groups`
     (default: about one group per 125 samples, at least 2) sets how
-    many files the samples are spread over."""
+    many files the samples are spread over; `deletions=False` turns the
+    deletion sites into bi-allelic SNVs (a cohort without spanning
+    deletions)."""
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     if not n_groups:
@@ -173,6 +181,8 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
     gaps = rng.integers(8, 400, n_sites)
     site_pos = 1 + np.cumsum(gaps)
     kinds = rng.choice(3, n_sites, p=[0.6, 0.2, 0.2])
+    if not deletions:
+        kinds[kinds == 2] = 0
     sites = np.stack([site_pos, kinds], axis=1)
     genome = "".join(BASES[rng.integers(0, 4, int(site_pos[-1]) + 8)])
     pools = {"ref": _cell_pool(rng, 512, 2, True),
@@ -207,6 +217,11 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
         json.dump(_VID, f)
     with open(cs_path, "w") as f:
         json.dump({"callsets": callsets}, f)
+    fasta = os.path.join(out_dir, "ref.fa")
+    with open(fasta, "w") as f:
+        f.write(">1\n")
+        f.writelines(genome[i:i + 60] + "\n"
+                     for i in range(0, len(genome), 60))
     loader = os.path.join(out_dir, "loader.json")
     with open(loader, "w") as f:
         json.dump({"column_partitions": [{"begin": 0, "workspace": ws_path,
@@ -230,4 +245,4 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
                   loader=loader, query=query_json("query.json", 0, region),
                   query_head=query_json("query_head.json", 0, head_hi),
                   workspace=ws_path, array=array, n_samples=n_samples,
-                  region=region, head_interval=(0, head_hi))
+                  region=region, head_interval=(0, head_hi), fasta=fasta)

@@ -6,17 +6,19 @@ Usage:
       [-l loader.json]
       [--print-calls | --print-csv | --print-AC | --produce-Broad-GVCF
        | --produce-interesting-positions | --produce-histogram]
-      [--engine block|sequential] [--device cuda|cpu] [-r rank]
-      [--num-ranks N]
+      [--engine block|sequential] [--device cuda|cpu] [-p page_size]
+      [-s segment_size] [--ooc] [-r rank] [--num-ranks N]
 
 Takes the JAX tool's arguments plus `--device`, the counterpart of
 `--platform`.  `--produce-Broad-GVCF` with the block engine (the
-default) runs the port's device combine on that device; every other
-query mode, `--java-vcf` and `--engine sequential` run on the host.
-The fetch pack is on by default on a CUDA device and off on the CPU;
-callers of `main` / `run_rank` (tests, chip_smoke.py) force it with the
-`pack` keyword.  `--mesh`, `--platform`, `--parallel-ranks` and the
-paged combined stream (`-p/--page-size`) are refused.
+default) runs the port's device combine on that device, and so does
+the paged combined stream (`-p`); with `--ooc` (or past the automatic
+size threshold) the block engine streams the store's column windows.
+Every other query mode, `--java-vcf` and `--engine sequential` run on
+the host.  The fetch pack is on by default on a CUDA device and off on
+the CPU; callers of `main` / `run_rank` (tests, chip_smoke.py) force it
+with the `pack` keyword.  `--mesh`, `--platform` and `--parallel-ranks`
+are refused.
 """
 
 from __future__ import annotations
@@ -121,9 +123,12 @@ def run_rank(args, rank: int, device, pack=None) -> str:
     query mode on the host."""
     ip, qp, vid, store = load_context(args, rank)
     from ..store.fragment_v2 import OocArray
-    if isinstance(store, OocArray):
-        # out-of-core windows are not ported: serve the memory-mapped
-        # store view (the OS pages in what the query touches)
+    if isinstance(store, OocArray) and not (
+            args.produce_Broad_GVCF and args.engine == "block"
+            and not args.java_vcf and args.page_size == 0):
+        # only the block combine engine streams OocArray windows; the
+        # other query types run on the memory-mapped store view (the OS
+        # pages in what the query touches)
         store = store.store
     qc = qdriver.make_query_config(qp, vid)
     if args.print_calls:
@@ -158,6 +163,14 @@ def run_rank(args, rank: int, device, pack=None) -> str:
         # header only on the first rank (partition outputs are concatenated)
         tmpl = template if rank == args.rank \
             and not args.no_vcf_header else None
+        if args.page_size > 0 and not args.java_vcf:
+            # resumable byte pages whose concatenation is byte-identical
+            # to the one-shot query (gt_mpi_gather.cc -p page_size /
+            # RWBuffer path), through the block engine on `device`
+            pages = qdriver.run_vcf_query_paged(
+                store, qc, qp, vid, device, args.page_size,
+                template_path=tmpl, reference_path=refg, pack=pack)
+            return b"".join(pages).decode()
         if args.java_vcf:
             return qdriver.run_java_vcf_query(
                 store, qc, qp, vid, template_path=tmpl,
@@ -192,10 +205,17 @@ def _build_parser():
     p.add_argument("-l", "--loader", default=None)
     p.add_argument("-s", "--segment-size", type=int, default=0)
     p.add_argument("--ooc", action="store_true",
-                   help="accepted for the JAX tool's command lines; the "
-                        "port serves an out-of-core store from its "
-                        "memory-mapped view")
-    p.add_argument("-p", "--page-size", type=int, default=0)
+                   help="serve the query out-of-core: the block engine "
+                        "streams memory-bounded column windows of "
+                        "segment_size bytes (-s) instead of loading the "
+                        "partition into RAM (v2 fragments; "
+                        "auto-enabled past GENOMICSDB_TPU_OOC_THRESHOLD, "
+                        "default 4 GiB); other query modes read the "
+                        "memory-mapped store")
+    p.add_argument("-p", "--page-size", type=int, default=0,
+                   help="produce the combined gVCF as resumable pages "
+                        "of about this many bytes (block engine on "
+                        "--device)")
     p.add_argument("-r", "--rank", type=int, default=0)
     p.add_argument("--num-ranks", type=int, default=1,
                    help="gather outputs of ranks [rank, rank+num_ranks)")
@@ -253,10 +273,6 @@ def _refuse(args) -> None:
     if args.parallel_ranks:
         raise SystemExit("gdb_query: --parallel-ranks is not supported on "
                          "the port")
-    if args.produce_Broad_GVCF and args.page_size > 0 \
-            and not args.java_vcf:
-        raise SystemExit("gdb_query: -p/--page-size (the paged combined "
-                         "stream) is not supported on the port")
 
 
 def main(argv=None, *, pack=None):

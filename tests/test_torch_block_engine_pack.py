@@ -77,10 +77,12 @@ def test_packed_port_equals_jax_fused_packed_and_sequential(cohort,
     assert packed == plain
 
 
-def test_packed_port_over_small_chunks(cohort):
+def test_packed_port_over_small_chunks(cohort, monkeypatch):
     """Many chunks in the two-phase pipeline (two in flight), each with
     its own med_rows bucket, split decision and blob: equal to one
-    chunk without the pack."""
+    chunk without the pack.  Both queries run the engine (the serving
+    index would serve the repeat of one store's query)."""
+    monkeypatch.setenv("GENOMICSDB_TPU_SERVING_INDEX", "0")
     args = torch_gdb_query._build_parser().parse_args(
         ["-j", cohort.query, "--produce-Broad-GVCF"])
     _, qp, vid, store = torch_gdb_query.load_context(args, 0)

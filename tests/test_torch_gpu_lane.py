@@ -186,3 +186,66 @@ def test_packed_block_query_on_the_card(cuda, tmp_path):
     assert FC.combine_block.wide_blocks_when_packing == 0
     assert BW.render_block_vcf_pipelined.split_blocks > 0
     assert on_card and on_card == run("cpu") == run("cpu", pack=True)
+
+
+def test_socket_server_on_the_card(cuda, tmp_path):
+    """A small cohort served over the socket by a server on the card
+    (engine lane, then the serving index, one-shot and persistent, four
+    concurrent clients) gives the bytes of a server on the CPU."""
+    import os
+    import threading
+
+    from genomicsdb_tpu_torch.query import stream_server as SS
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import vcf2gdb
+    c = write_cohort(str(tmp_path), 40, 300, seed=2)
+    vcf2gdb.main([c.loader])
+    docs = [{"workspace": c.workspace, "array_name": c.array,
+             "vid_mapping_file": c.vid, "callset_mapping_file": c.callsets,
+             "query_column_ranges": [{"range_list": [
+                 {"low": lo, "high": lo + 3000}]}]}
+            for lo in (0, c.region // 3, c.region - 2000)]
+    ref = SS.QueryStreamServer(port=0, device="cpu")
+    card = SS.QueryStreamServer(port=0, device=cuda)
+    ref.start_background()
+    card.start_background()
+    try:
+        want = [SS.read_query_stream(*ref.address, d) for d in docs]
+        FC.combine_block.blocks = 0
+        FC.fused_gather_remap.narrow_launches = 0
+        os.environ["GENOMICSDB_TPU_SERVING_INDEX"] = "0"
+        try:
+            with SS.QueryStreamClient(*card.address) as cli:
+                assert [cli.query(d) for d in docs] == want
+        finally:
+            del os.environ["GENOMICSDB_TPU_SERVING_INDEX"]
+        assert FC.fused_gather_remap.narrow_launches \
+            == FC.combine_block.blocks >= len(docs)
+        with SS.QueryStreamClient(*card.address) as cli:
+            for _ in range(3):
+                assert [cli.query(d) for d in docs] == want
+        assert [SS.read_query_stream(*card.address, d)
+                for d in docs] == want
+        errors = []
+
+        def client(tid):
+            try:
+                with SS.QueryStreamClient(*card.address) as cli:
+                    for k in range(6):
+                        i = (tid + k) % len(docs)
+                        if cli.query(docs[i]) != want[i]:
+                            errors.append((tid, k))
+            except Exception as e:      # surfaced after join
+                errors.append((tid, repr(e)))
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors
+    finally:
+        ref.shutdown()
+        card.shutdown()

@@ -116,6 +116,63 @@ def test_import_and_query_with_jax_and_the_jax_package_blocked(tmp_path):
     assert res.stdout == jax_text
 
 
+SERVING_MODULES = ("genomicsdb_tpu_torch.query.serving_index",
+                   "genomicsdb_tpu_torch.query.stream",
+                   "genomicsdb_tpu_torch.query.stream_server",
+                   "genomicsdb_tpu_torch.tools.genome_bench",
+                   "genomicsdb_tpu_torch.tools.stream_latency_bench")
+BLOCK = ("import sys\n"
+         "sys.modules['jax'] = None\n"
+         "sys.modules['genomicsdb_tpu'] = None\n"
+         f"sys.path.insert(0, {ROOT!r})\n")
+
+
+def test_serving_modules_scanned_and_importable_with_jax_blocked(cohort):
+    """The serving path's modules are in the AST scan, import in an
+    interpreter where jax and genomicsdb_tpu cannot load, and serve a
+    query over the socket there (CPU device, one-shot and paged)."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in SERVING_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in scanned, mod
+    doc = {"workspace": cohort.workspace, "array_name": cohort.array,
+           "vid_mapping_file": cohort.vid,
+           "callset_mapping_file": cohort.callsets,
+           "query_column_ranges": [{"range_list": [{"low": 0,
+                                                    "high": 5000}]}]}
+    code = (BLOCK
+            + "".join(f"import {m}\n" for m in SERVING_MODULES)
+            + "from genomicsdb_tpu_torch.query import stream_server as s\n"
+            "srv = s.QueryStreamServer(port=0, device='cpu')\n"
+            "srv.start_background()\n"
+            f"data = s.read_query_stream(*srv.address, {doc!r})\n"
+            "srv.shutdown()\n"
+            "assert data[:5] == b'BCF\\x02\\x02' and len(data) > 1000\n"
+            "from genomicsdb_tpu_torch.tools import gdb_query\n"
+            f"gdb_query.main(['-j', {cohort.query!r}, '--produce-Broad-GVCF',"
+            " '--device', 'cpu', '-p', '4096'])\n"
+            "assert not [m for m in sys.modules if m.startswith(("
+            "'jax.', 'genomicsdb_tpu.'))]\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout == _run(torch_gdb_query.main,
+                              ["-j", cohort.query, "--produce-Broad-GVCF",
+                               "--device", "cpu"])
+
+
+def test_stream_server_help_runs_with_jax_blocked():
+    """`python -m genomicsdb_tpu_torch.query.stream_server --help` with
+    jax and genomicsdb_tpu blocked."""
+    code = (BLOCK + "import runpy\n"
+            "sys.argv = ['stream_server', '--help']\n"
+            "runpy.run_module('genomicsdb_tpu_torch.query.stream_server',"
+            " run_name='__main__')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "--device" in res.stdout and "--platform" not in res.stdout
+
+
 def _store_files(workspace):
     """{path relative to the workspace, fragment time masked: bytes}."""
     out = {}
