@@ -59,6 +59,17 @@ Every phase passes or the script exits non-zero:
      65536` on cuda must give phase 3's text, and `gdb_query --ooc -s
      <a quarter of the store>` must too, over more than one window and
      with a lower device-memory high-water mark than the in-RAM query.
+  6. Distribution: `gdb_query --mesh 1x1 --device cuda` (one rank
+     process, NCCL) and `--mesh 2x2` (four rank processes sharing
+     cuda:0 on gloo) must give phase 3's text byte for byte; every rank
+     must have launched the CUDA kernel once per block (printed per
+     rank).  The 2x2 mesh's largest shard launch (the first rank's shard
+     of the main path's largest block) is held against the twin and
+     timed.  The cohort's store is cut into 4 column partitions
+     (`parallel.repartition`); `--parallel-ranks --num-ranks 4` on cuda
+     must equal the in-process `--num-ranks 4` text.  Two processes run
+     a `multihost.gather_blobs_to_root` round (lengths 0 and 3 MB, 1 MB
+     rounds).  Wall times beside the unsharded query's in this call.
 
 Times are CUDA events around back-to-back calls after a warm-up.  A
 kernel's time is that of launches bound once (only a ctypes call between
@@ -263,13 +274,13 @@ def _synthetic_block(np, label, S, C, R, m, p, mixed, keep_b=None):
     return blk
 
 
-def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, plan_kw=None):
-    """Holds the kernel against the twin in every form, bit for bit,
+def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, forms=FORMS):
+    """Holds the kernel against the twin in each of `forms`, bit for bit,
     then times both with CUDA events (twins, kernels, kernels, twins).
     Returns {form: (max_abs_err, kernel_ms, twin_ms, bytes)}."""
     from genomicsdb_tpu_torch.ops import fused_combine as FC
     modes = {f: dict(base, narrow=n, narrow_scalars=ns)
-             for f, (n, ns) in FORMS.items()}
+             for f, (n, ns) in forms.items()}
     errs = {}
     for mode, kw in modes.items():
         twin = FC.fused_gather_remap_ref(*args, **kw)
@@ -483,8 +494,7 @@ def phase_main_path(torch, c, card):
     """Records every kernel launch of one more warm pack-on query (not
     counted), then holds the largest launch's inputs against the twin in
     every form and times them.  Returns ({form: (max_abs_err, kernel_ms,
-    twin_ms, bytes)} at that launch, the launches' total bytes per form
-    as launched)."""
+    twin_ms, bytes)} at that launch, that launch's (args, keywords))."""
     from genomicsdb_tpu_torch.ops import fused_combine as FC
     argv = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]
     seen = []
@@ -519,7 +529,8 @@ def phase_main_path(torch, c, card):
                                "mixed")}
     B, S = args[12].shape
     label = f"main-path launch B={B} S={S} C={args[0].shape[1]}"
-    return _forms_vs_twin(torch, label, args, base, reps_k=50, reps_t=3)
+    return _forms_vs_twin(torch, label, args, base, reps_k=50,
+                          reps_t=3), (args, base)
 
 
 def _set_serving_index(on: bool) -> None:
@@ -820,6 +831,177 @@ def phase_serving(torch, np, c, card, main_text):
         raise AssertionError("--ooc: the out-of-core device-memory mark "
                              "is not below the in-RAM query's")
 
+GATHER_ROUND = r"""
+import os, sys
+sys.modules["jax"] = None
+sys.modules["genomicsdb_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from genomicsdb_tpu_torch.parallel import multihost
+pid = int(sys.argv[2])
+multihost.GATHER_CHUNK = 1 << 20
+multihost.initialize("localhost:" + sys.argv[3], 2, pid)
+blob = bytes(np.random.default_rng(pid).integers(0, 256, pid * 3 << 20,
+                                                 dtype=np.uint8))
+got = multihost.gather_blobs_to_root(blob)
+if pid == 0:
+    want = [bytes(np.random.default_rng(i).integers(0, 256, i * 3 << 20,
+                                                    dtype=np.uint8))
+            for i in range(2)]
+    assert got == want, [len(g) for g in got]
+    print("GATHER_OK", [len(g) for g in got])
+else:
+    assert got is None
+"""
+
+
+def _gather_round():
+    """Two processes on this host run one gather_blobs_to_root round;
+    returns (seconds, rank 0's stdout)."""
+    from genomicsdb_tpu_torch.tools.gdb_query import free_port
+    port = str(free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", GATHER_ROUND, ROOT,
+                               str(i), port], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gather round, process {i}: {err[-2000:]}")
+    return time.perf_counter() - t0, outs[0][0]
+
+
+def _four_partitions(np, c):
+    """The cohort's store cut into 4 column partitions (written as
+    arrays p0..p3 of a new workspace) and a loader and query over them."""
+    from genomicsdb_tpu_torch.parallel.repartition import repartition
+    from genomicsdb_tpu_torch.store import workspace as ws
+    begins = [int(x) for x in np.linspace(0, c.region, 5)[:-1]]
+    ws4 = os.path.join(c.dir, "ws4")
+    ws.create_workspace(ws4)
+    parts = repartition([ws.open_array(c.workspace, c.array)], begins)
+    for i, part in enumerate(parts):
+        ws.write_fragment(ws4, f"p{i}", part)
+    loader = os.path.join(c.dir, "loader4.json")
+    with open(loader, "w") as f:
+        json.dump({"column_partitions": [
+            {"begin": b, "workspace": ws4, "array_name": f"p{i}"}
+            for i, b in enumerate(begins)],
+            "callset_mapping_file": c.callsets, "vid_mapping_file": c.vid,
+            "treat_deletions_as_intervals": True}, f)
+    query = os.path.join(c.dir, "query4.json")
+    with open(query, "w") as f:
+        json.dump({"workspace": "", "array_name": "",
+                   "query_column_ranges": [{"range_list": [
+                       {"low": 0, "high": c.region}]}],
+                   "vid_mapping_file": c.vid,
+                   "callset_mapping_file": c.callsets, "attributes": []}, f)
+    return loader, query
+
+
+def phase_distribution(torch, np, c, card, main_text, largest):
+    """The mesh (1x1 on NCCL, 2x2 on gloo sharing the card), the largest
+    2x2 shard launch against the twin, --parallel-ranks against
+    --num-ranks on 4 partitions, and a 2-process blob gather.  Returns
+    the kernel launches of the mesh ranks."""
+    from genomicsdb_tpu_torch.ops.combine_step import to_tensor
+    from genomicsdb_tpu_torch.parallel import comm
+    from genomicsdb_tpu_torch.parallel import sharded as TS
+    from genomicsdb_tpu_torch.tools import gdb_query
+    print(f"distribution: collectives by {comm.ALL_GATHER} (all-gather) "
+          f"and torch.distributed.gather; torch {torch.__version__}")
+    base = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]
+    # every query of this phase runs the engine (the mesh never consults
+    # the serving index; the unsharded query would be served from it)
+    _set_serving_index(False)
+    t0 = time.perf_counter()
+    unsharded = _query(base)
+    torch.cuda.synchronize()
+    t_unsharded = time.perf_counter() - t0
+    if unsharded != main_text:
+        raise AssertionError("the unsharded query differs from phase 3's")
+    launches = 0
+    walls = {}
+    for shape in ("1x1", "2x2"):
+        n_pos, n_row = (int(x) for x in shape.split("x"))
+        world = n_pos * n_row
+        want = "nccl" if world <= torch.cuda.device_count() else "gloo"
+        t0 = time.perf_counter()
+        text = _query(base + ["--mesh", shape])
+        walls[shape] = time.perf_counter() - t0
+        reports = gdb_query.spawn_mesh.rank_reports
+        for r in reports:
+            print(f"  mesh {shape} rank {r['rank']} (pos {r['pos']}, row "
+                  f"{r['row']}) on {r['device']} [{r['backend']}]: "
+                  f"{r['blocks']} blocks, {r['launches']} kernel launches, "
+                  f"{r['general_path_blocks']} general-path blocks, "
+                  f"{r['all_gathers']} row gathers of "
+                  f"{r['all_gather_bytes']} bytes; joined the mesh in "
+                  f"{r['mesh_s']:.3f} s, query {r['query_s']:.3f} s")
+        if text != main_text:
+            raise AssertionError(f"--mesh {shape} differs from the "
+                                 "unsharded text")
+        if [r["rank"] for r in reports] != list(range(world)) or not all(
+                r["backend"] == want and r["launches"] == r["blocks"] > 0
+                and r["general_path_blocks"] == 0 for r in reports):
+            raise AssertionError(f"--mesh {shape}: expected one {want} "
+                                 "rank per position, each launching the "
+                                 f"kernel once per block: {reports}")
+        launches += sum(r["launches"] for r in reports)
+    print(f"mesh query walls: unsharded {t_unsharded:.3f} s, --mesh 1x1 "
+          f"(nccl) {walls['1x1']:.3f} s, --mesh 2x2 (gloo, 4 ranks on "
+          f"cuda:0) {walls['2x2']:.3f} s; texts byte-identical [{card}]")
+
+    # the largest 2x2 shard launch: the first rank's shard of the main
+    # path's largest block
+    args, kw = largest
+    live = args[12]
+    B, S = live.shape
+    gtl = args[17] if args[17] is not None else torch.full_like(
+        live, args[4].shape[2])
+    tensors = (*args[:12], args[13], args[14], args[15], args[16], live,
+               torch.zeros_like(live, dtype=torch.bool), gtl)
+    local = TS.shard_tensors(TS.Mesh(2, 2, 0, 0, live.device), tensors, B, S)
+    shard = (*local[:12], local[16], local[12], local[13], local[14],
+             local[15], local[18] if kw["mixed"] else None)
+    b_loc, s_loc = local[16].shape
+    _forms_vs_twin(torch, f"2x2 shard launch B={b_loc} S={s_loc} "
+                   f"C={args[0].shape[1]}", shard, kw, reps_k=50, reps_t=3,
+                   forms={"wide": FORMS["wide"]})
+
+    loader, query = _four_partitions(np, c)
+    part = ["-j", query, "-l", loader, "--produce-Broad-GVCF", "--device",
+            "cuda", "--num-ranks", "4"]
+    to_tensor.h2d_bytes = 0
+    t0 = time.perf_counter()
+    spawned = _query(part + ["--parallel-ranks"])
+    t_spawned = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    in_process = _query(part)
+    torch.cuda.synchronize()
+    t_in = time.perf_counter() - t0
+    if spawned != in_process or spawned.count("\n") < E2E_RECORDS:
+        raise AssertionError(f"--parallel-ranks ({spawned.count(chr(10))} "
+                             "lines) differs from --num-ranks 4 "
+                             f"({in_process.count(chr(10))} lines)")
+    print(f"4 partitions: --parallel-ranks (4 rank processes on cuda:0) "
+          f"{t_spawned:.3f} s, in-process --num-ranks 4 {t_in:.3f} s; texts "
+          f"byte-identical, {spawned.count(chr(10))} lines [{card}]")
+    t_gather, out = _gather_round()
+    if "GATHER_OK" not in out:
+        raise AssertionError(f"gather round: {out}")
+    print(f"multihost gather_blobs_to_root, 2 processes (lengths 0 and "
+          f"3 MiB, 1 MiB rounds): {t_gather:.3f} s with start-up; "
+          f"{out.strip()}")
+    _set_serving_index(True)
+    return launches
+
 
 def phase_profile(torch, c, card, out_dir):
     """torch.profiler over one warm query per fetch mode: device time
@@ -888,8 +1070,10 @@ def main() -> int:
     card = phase_environment(torch)
     phase_kernel_vs_twin(torch, np, dev)
     c_on, c_off, cohort, main_text = phase_end_to_end(torch, card)
-    main = phase_main_path(torch, cohort, card)
+    main, largest = phase_main_path(torch, cohort, card)
     phase_serving(torch, np, cohort, card, main_text)
+    mesh_launches = phase_distribution(torch, np, cohort, card, main_text,
+                                       largest)
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))
 
@@ -904,12 +1088,12 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("fused_gather_remap (wide)", f"{PALLAS}:875", "wide",
-              c_off["launches"]),
+              c_off["launches"] + mesh_launches),
         entry("fused_gather_remap (narrow int16 outputs)",
               f"{PALLAS}:1070", "narrow+scalars", c_on["narrow_launches"]),
         entry("fused_gather_remap (wide, non-mixed: the per-sample "
               "_make_kernel function)", f"{PALLAS}:264", "wide",
-              c_off["launches"]),
+              c_off["launches"] + mesh_launches),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,19 @@ one shared library with a plain C interface, at first use:
 The library lands in `build/genomicsdb_tpu_torch/` under the checkout,
 named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads the cached file.  The first build runs under
-a lock: threads of one process (the stream server's connections) that
-launch at once build and load it once.  Nothing is compiled when a
-module is imported: the CPU test suite imports every module on machines
-with no nvcc.
+two locks: a thread lock, so that threads of one process (the stream
+server's connections) that launch at once build and load it once, and
+an `fcntl.flock` on `BUILD_DIR/build.lock`, so that processes that start
+at once (mesh ranks, rank workers) run nvcc once and the others load
+the file it wrote (`os.replace` puts it in place whole).  Nothing is
+compiled when a module is imported: the CPU test suite imports every
+module on machines with no nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -87,22 +91,34 @@ def _load_library() -> KernelLibrary:
     build_s, log = 0.0, ""
     if not os.path.isfile(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_s = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)
+        with open(os.path.join(BUILD_DIR, "build.lock"), "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if not os.path.isfile(path):   # another process built it
+                    build_s, log = _build(srcs, path)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
     lib = ctypes.CDLL(path)
     _bind(lib)
     return KernelLibrary(lib=lib, path=path, build_seconds=build_s,
                          ptxas_log=log)
+
+
+def _build(srcs, path: str):
+    """nvcc of `srcs` into `path`: (seconds, nvcc's report)."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_s = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, path)
+    return build_s, log
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -137,10 +137,42 @@ def _remap_math(plg, invg, pllg, nrg, adg, adlg, gtg, rec_num_merged,
     return pl_out, ad_out, gt_out
 
 
-def _reduce_math(gqg, dpfg, mdpg, dpig, infog, infoig, infofsg, valid
-                 ) -> Dict[str, torch.Tensor]:
+def _gather_sample_axis(group, valid, infog, infoig, infofsg, dpig, dpfg,
+                        mdpg):
+    """The arguments' full sample axis (their last) from every rank of
+    the mesh's `group`, in rank order: the counterpart of the JAX
+    `all_gather(x, "row", tiled=True)`.  One collective moves all seven,
+    as int32 words stacked on a leading field axis (floats by their
+    bits, so the NaN words of masked rows survive); the rank axis the
+    gather puts in front moves beside the sample axis with one permute."""
+    from ..parallel.comm import all_gather
+    F, Fi = infog.shape[0], infoig.shape[0]
+    words = torch.cat([valid.to(torch.int32)[None],
+                       infog.view(torch.int32), infoig,
+                       infofsg.view(torch.int32),
+                       torch.stack([dpig, dpfg, mdpg])])   # [K, B, S_loc]
+    g = all_gather(words, group)                           # [R, K, B, S_loc]
+    R, K, B, S_loc = g.shape
+    g = g.permute(1, 2, 0, 3).reshape(K, B, R * S_loc)
+    return (g[0] != 0, g[1:1 + F].view(torch.float32),
+            g[1 + F:1 + F + Fi], g[1 + F + Fi:K - 3].view(torch.float32),
+            g[K - 3], g[K - 2], g[K - 1])
+
+
+def _reduce_math(gqg, dpfg, mdpg, dpig, infog, infoig, infofsg, valid,
+                 group=None) -> Dict[str, torch.Tensor]:
     """Cross-sample INFO reductions over gathered [B, S] inputs (shared
-    by the general and the kernel paths)."""
+    by the general and the kernel paths).  With `group` (the mesh's row
+    group, each rank holding a slice of the sample axis), the inputs'
+    full sample axis is gathered from the group's ranks first and the
+    local math then runs unchanged, so the results equal the unsharded
+    ones bit for bit; GQ / DP / MIN_DP stay the local slices."""
+    if group is not None:
+        valid, infog, infoig, infofsg, dpig, dpf_f, mdp_f = \
+            _gather_sample_axis(group, valid, infog, infoig, infofsg, dpig,
+                                dpfg, mdpg)
+    else:
+        dpf_f, mdp_f = dpfg, mdpg
     # INFO medians over samples (invalid float inputs are NaN -> excluded
     # via isfinite)
     finite = torch.isfinite(infog) & valid[None]
@@ -154,8 +186,8 @@ def _reduce_math(gqg, dpfg, mdpg, dpig, infog, infoig, infofsg, valid
     fs_ok = torch.isfinite(infofsg) & valid[None]
     fsum, fsum_ok = masked_seq_sum_float(
         torch.where(fs_ok, infofsg, 0.0), fs_ok)
-    dp_sum = K.dp_combine(dpig, dpfg, mdpg, dpig != INT_MISSING,
-                          dpfg != INT_MISSING, mdpg != INT_MISSING)
+    dp_sum = K.dp_combine(dpig, dpf_f, mdp_f, dpig != INT_MISSING,
+                          dpf_f != INT_MISSING, mdp_f != INT_MISSING)
     return {
         "info_median": med, "info_median_ok": med_ok,
         "info_imedian": imed, "info_imedian_ok": imed_ok,
@@ -215,11 +247,14 @@ def combine_step(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
                  rec_num_merged, rec_has_nr, live, del_rw=None,
                  gt_len_bs=None, med_rows=None, *, max_merged: int,
                  ploidy: int, gt_phase: bool = False,
-                 mixed_ploidy: bool = False) -> Dict[str, torch.Tensor]:
+                 mixed_ploidy: bool = False,
+                 group=None) -> Dict[str, torch.Tensor]:
     """The whole combine on tensors of one device (argument order of
     `block_to_tensors`).  Returns the output dict of the JAX
     `combine_step`, with the same keys and dtypes; with `med_rows`, the
-    INFO reductions cover those rows only."""
+    INFO reductions cover those rows only.  With `group`, the tensors
+    are one mesh shard's and the reductions gather the sample axis over
+    it (`_reduce_math`; the JAX `sharded_combine_step`)."""
     live = live.to(torch.int32)
     inv_bs = inv_bs.to(torch.int32)
     nr_bs = nr_bs.to(torch.int32)
@@ -234,7 +269,8 @@ def combine_step(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
         ploidy=ploidy, gt_phase=gt_phase, mixed_ploidy=mixed_ploidy)
     out = _reduce_math(g["gqg"], g["dpfg"], g["mdpg"], g["dpig"],
                        *_restrict_rows(g["infog"], g["infoig"],
-                                       g["infofsg"], g["valid"], med_rows))
+                                       g["infofsg"], g["valid"], med_rows),
+                       group=group)
     out.update({"pl": pl_out, "ad": ad_out, "gt": gt_out, "live": live})
     return out
 

@@ -507,13 +507,15 @@ def fused_gather_remap_ref(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
 
 
 def _fused_post(k: Dict[str, torch.Tensor], del_rw: torch.Tensor,
-                live: torch.Tensor, med_rows=None) -> Dict[str, torch.Tensor]:
+                live: torch.Tensor, med_rows=None,
+                group=None) -> Dict[str, torch.Tensor]:
     """Kernel outputs -> the combine_step output dict
     (pallas_combine._fused_post): INFO rows of spanning-deletion-
     rewritten calls are masked, then the cross-sample reductions run in
     plain torch, over the `med_rows` rows only when given.  Narrow
     GQ/DP/MIN_DP feed the DP sum as widened copies and stay int16 in the
-    result, for the fetch pack."""
+    result, for the fetch pack.  `group` is the mesh's row group when
+    the outputs are one shard's (`_reduce_math`)."""
     iok = ~del_rw[None]                              # [1, B, S]
     infog = torch.where(iok, k["info_f"], float("nan"))
     infoig = torch.where(iok, k["info_i"], INT_MISSING)
@@ -524,10 +526,21 @@ def _fused_post(k: Dict[str, torch.Tensor], del_rw: torch.Tensor,
     narrow_scalars = scalars[0].dtype == torch.int16
     wide = [widen16(x) for x in scalars] if narrow_scalars else scalars
     res = _reduce_math(*wide, k["dp_info"], infog, infoig, infofsg,
-                       med_valid)
+                       med_valid, group=group)
     res.update(zip(_SCALAR_KEYS, scalars))
     res.update({"pl": k["pl"], "ad": k["ad"], "gt": k["gt"], "live": live})
     return res
+
+
+def kernel_takes(blk, max_merged: int, ploidy: int,
+                 mixed_ploidy: bool) -> bool:
+    """The kernel's gates (the JAX combine_step_fused's): False for an
+    empty block, ploidy above 6, more than 16 merged alleles, or mixed
+    ploidy without stored GT lengths."""
+    B, S = np.asarray(blk.live).shape
+    return not (S == 0 or B == 0 or ploidy > MAX_PLOIDY
+                or max_merged > MAX_MERGED
+                or (mixed_ploidy and blk.gt_len_bs is None))
 
 
 def combine_step_fused(blk, device, *, max_merged: int, ploidy: int,
@@ -541,10 +554,7 @@ def combine_step_fused(blk, device, *, max_merged: int, ploidy: int,
     without stored GT lengths.  `narrow_out` asks for the narrow form,
     which the block gets when its values fit int16 (else the wide one);
     `med_rows` restricts the INFO reductions to those rows."""
-    B, S = np.asarray(blk.live).shape
-    if S == 0 or B == 0 or ploidy > MAX_PLOIDY or max_merged > MAX_MERGED:
-        return None
-    if mixed_ploidy and blk.gt_len_bs is None:
+    if not kernel_takes(blk, max_merged, ploidy, mixed_ploidy):
         return None
     if blk.inv_bs.shape[2] != max_merged:
         raise ValueError(f"block has {blk.inv_bs.shape[2]} merged-allele "

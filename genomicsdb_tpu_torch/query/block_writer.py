@@ -20,8 +20,12 @@ the variant rows and the small outputs into one blob whose copy to
 pinned host memory starts before the previous chunk renders, and the
 host widens it and rebuilds the ref-block rows (the native
 `identity_outputs`).  With `pack` off (the default on the CPU device)
-every output is fetched whole with `.cpu().numpy()`.  The JAX package's
-mesh and dense-gather branches and its CPU-device `remap_rows`
+every output is fetched whole with `.cpu().numpy()`.  The mesh branch
+(`mesh=`, `gdb_query --mesh`) combines each rank's shard of the block
+(`parallel.sharded`: the CUDA kernel per shard in its wide form, the
+cross-sample reductions over the mesh's row group) and the first rank
+gathers, trims and renders, as the JAX mesh branch does.  The JAX
+package's dense-gather branch and its CPU-device `remap_rows`
 restriction are not ported.  The host render below the device section
 is unchanged.
 """
@@ -67,45 +71,28 @@ def _fmt_elem(x, is_float: bool) -> str:
     return str(x)
 
 
-def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
-                               vid: VidMapper,
-                               interval,
-                               device,
-                               ref_genome=None,
-                               max_merged: int = 4, ploidy: int = 2,
-                               sequential_fn=None,
-                               pad_records: Optional[int] = None,
-                               pad_cells_to: int = 1,
-                               filter_name_by_field_idx=None,
-                               coalesce: bool = False,
-                               pack: Optional[bool] = None):
-    """Combined records for `interval`, combined on `device` (a
-    torch.device), as a two-phase generator: the first next() builds
-    the block, launches the device combine (asynchronous on a CUDA
-    device) and starts the packed fetch; the second next() fetches
-    outputs and returns the text lines.  Callers overlap chunk k+1's
-    launch with chunk k's render (the device computes while the host
-    formats).
+def _mesh_device_section(mesh, blk, max_merged, ploidy, gt_phase,
+                         mixed_ploidy):
+    """The JAX writer's mesh branch: this rank's shard of the block is
+    combined (`sharded.mesh_combine`: the CUDA kernel per shard, wide,
+    with the reductions over the mesh's row group), then, after the
+    pipeline's yield, the first rank gathers and trims every shard's
+    outputs.  No med_rows restriction and no pack, as in the JAX mesh
+    branch.  Returns (host outputs or None off the first rank, live)."""
+    from ..parallel.sharded import gather_outputs, mesh_combine
+    out = mesh_combine(mesh, blk, max_merged=max_merged, ploidy=ploidy,
+                       gt_phase=gt_phase, mixed_ploidy=mixed_ploidy)
+    live = np.asarray(blk.live)
+    yield
+    return gather_outputs(mesh, out, *live.shape), live
 
-    `pack` (None: on for a CUDA device, off otherwise) selects the
-    narrow kernel and the packed, variant-row fetch.  Counts the blocks
-    whose fetch took the variant-row split in
-    `render_block_vcf_pipelined.split_blocks`.
 
-    `sequential_fn(lo, hi) -> List[str]`: maximal runs of records the
-    plan cannot realize are rendered by the sequential engine over
-    [lo, hi] and spliced in."""
-    blk, meta = store_to_block(store, qc, interval=interval,
-                               max_merged=max_merged, ploidy=ploidy,
-                               return_meta=True, pad_records=pad_records,
-                               pad_cells_to=pad_cells_to)
-    plan = meta.plan
-    ploidy = blk.ploidy          # block is sized to the cohort max
-    max_merged = blk.inv_bs.shape[2]   # after any allele-merge growth
-    gt_w = blk.gt.shape[2]
-    mixed_ploidy = bool(blk.gt_len_bs is not None
-                        and not (((blk.gt_len_bs == gt_w)
-                                  | (blk.live < 0)).all()))
+def _device_section(blk, meta, device, pack, max_merged, ploidy, gt_phase,
+                    mixed_ploidy):
+    """The single-device combine and fetch (a generator: it yields once,
+    between the launch and the fetch).  Returns (host outputs, live,
+    the padded med_rows the INFO reductions were restricted to, or
+    None)."""
     pack_on = device.type == "cuda" if pack is None else bool(pack)
     # INFO median/sum restriction: only rows with any valid input
     # (meta.med_rows) enter the cross-sample sorts; bucket-padded
@@ -122,7 +109,7 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
     # with the pack on, the kernel writes PL/AD/GT (and GQ/DP/MIN_DP)
     # already narrowed to int16, so no device re-narrow pass follows
     out = combine_block(blk, device, max_merged=max_merged, ploidy=ploidy,
-                        gt_phase=plan.gt_phase, mixed_ploidy=mixed_ploidy,
+                        gt_phase=gt_phase, mixed_ploidy=mixed_ploidy,
                         med_rows=med_rows_p, narrow_out=pack_on)
     # the fetch pack: narrowed outputs in one device blob, holding only
     # the variant rows when ref-block-only records are at least a
@@ -160,11 +147,11 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
             dict form (host_identity_outputs)."""
             if full is None:
                 return host_identity_outputs(blk, ref_emitted, widths,
-                                             plan.gt_phase, mixed_ploidy)
+                                             gt_phase, mixed_ploidy)
             return native_loader.identity_outputs(
                 live[ref_emitted], blk.pl, blk.pl_len, blk.ad,
                 blk.ad_len, blk.gt, blk.gq, blk.dp, blk.min_dp, gtl_r,
-                widths, blk.ploidy, plan.gt_phase, mixed_ploidy,
+                widths, blk.ploidy, gt_phase, mixed_ploidy,
                 out=full, dest_rows=ref_emitted) is not None
 
         dev = fetch_outputs_split(out, packed, var_rows, ref_emitted,
@@ -173,11 +160,72 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
         dev = fetch_outputs({k: v for k, v in out.items() if k != "live"},
                             packed)
     dev["live"] = live
+    return dev, live, med_rows_p
+
+
+def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
+                               vid: VidMapper,
+                               interval,
+                               device,
+                               ref_genome=None,
+                               max_merged: int = 4, ploidy: int = 2,
+                               sequential_fn=None,
+                               pad_records: Optional[int] = None,
+                               pad_cells_to: int = 1,
+                               filter_name_by_field_idx=None,
+                               coalesce: bool = False,
+                               pack: Optional[bool] = None,
+                               mesh=None):
+    """Combined records for `interval`, combined on `device` (a
+    torch.device), as a two-phase generator: the first next() builds
+    the block, launches the device combine (asynchronous on a CUDA
+    device) and starts the packed fetch; the second next() fetches
+    outputs and returns the text lines.  Callers overlap chunk k+1's
+    launch with chunk k's render (the device computes while the host
+    formats).
+
+    `pack` (None: on for a CUDA device, off otherwise) selects the
+    narrow kernel and the packed, variant-row fetch.  Counts the blocks
+    whose fetch took the variant-row split in
+    `render_block_vcf_pipelined.split_blocks`.
+
+    `mesh` (a `parallel.sharded.Mesh`): the combine runs sharded over
+    the mesh's rank processes, each on its own device (`device` is not
+    used), and only the mesh's first rank renders: the others return no
+    lines.  Every rank must walk the same blocks in the same order.  The
+    fetch is whole (no pack) and the INFO reductions cover every row.
+
+    `sequential_fn(lo, hi) -> List[str]`: maximal runs of records the
+    plan cannot realize are rendered by the sequential engine over
+    [lo, hi] and spliced in."""
+    blk, meta = store_to_block(store, qc, interval=interval,
+                               max_merged=max_merged, ploidy=ploidy,
+                               return_meta=True, pad_records=pad_records,
+                               pad_cells_to=pad_cells_to)
+    plan = meta.plan
+    ploidy = blk.ploidy          # block is sized to the cohort max
+    max_merged = blk.inv_bs.shape[2]   # after any allele-merge growth
+    gt_w = blk.gt.shape[2]
+    mixed_ploidy = bool(blk.gt_len_bs is not None
+                        and not (((blk.gt_len_bs == gt_w)
+                                  | (blk.live < 0)).all()))
+    if mesh is not None:
+        dev, live = yield from _mesh_device_section(
+            mesh, blk, max_merged, ploidy, plan.gt_phase, mixed_ploidy)
+        if dev is None:         # not the mesh's first rank: no text
+            yield []
+            return
+        med_rows_p = None
+    else:
+        dev, live, med_rows_p = yield from _device_section(
+            blk, meta, device, pack, max_merged, ploidy, plan.gt_phase,
+            mixed_ploidy)
     B, S = live.shape
     if med_rows_p is not None:
         # scatter the row-restricted INFO reductions back to full
         # width; rows outside med_rows read ok=False, exactly what
         # full-width computation gives at rows with no valid input
+        mr = meta.med_rows
         n_med = len(mr)
         for key in ("info_median", "info_imedian", "info_fsum"):
             v, okk = dev[key], dev[key + "_ok"]

@@ -148,16 +148,18 @@ def run_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
                         vid: VidMapper, device, template_path=None,
                         reference_path=None, max_merged: int = 4,
                         max_records_per_block: int = 65536,
-                        pack: Optional[bool] = None) -> str:
+                        pack: Optional[bool] = None, mesh=None) -> str:
     """--produce-Broad-GVCF via the batched device pipeline on `device`.
     Byte-identical to the sequential `run_vcf_query`.  `pack` (None: on
-    for a CUDA device) selects the narrow kernel and the packed fetch
-    (block_writer.render_block_vcf_pipelined)."""
+    for a CUDA device) selects the narrow kernel and the packed fetch,
+    `mesh` the sharded combine over a mesh of rank processes
+    (block_writer.render_block_vcf_pipelined): then only the mesh's
+    first rank gets the records, the others the header alone."""
     out_lines = list(iter_vcf_query_block(
         store, qc, qp, vid, device, template_path=template_path,
         reference_path=reference_path, max_merged=max_merged,
         max_records_per_block=max_records_per_block, coalesce=True,
-        pack=pack))
+        pack=pack, mesh=mesh))
     if not out_lines:
         return ""
     return "\n".join(out_lines) + "\n"
@@ -168,7 +170,7 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
                          reference_path=None, max_merged: int = 4,
                          max_records_per_block: int = 65536,
                          coalesce: bool = False,
-                         pack: Optional[bool] = None):
+                         pack: Optional[bool] = None, mesh=None):
     """Lazy form of run_vcf_query_block: yields header + record lines
     chunk by chunk (record-aligned blocks), so streaming consumers
     (CombinedRecordStream, the socket stream server) ride the block
@@ -181,7 +183,8 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
     own, so its layout and device slabs go with it, and the pipelined
     chunks keep at most the previous window alive.  Window edges fall
     on cell-start columns, so the output is byte-identical to an in-RAM
-    query.  A ColumnarStore consults the serving index first."""
+    query.  A ColumnarStore consults the serving index first, unless
+    the combine runs on a `mesh` (as in the JAX driver)."""
     from ..store.fragment_v2 import OocArray
     ref_genome = ReferenceGenome(reference_path) if reference_path else None
     sample_names = [vid.callset_name(r) for r in qc.rows_to_query]
@@ -205,7 +208,7 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
                 yield from _iter_interval_blocks(
                     wstore, (wlo, whi), qc, qp, vid, device, ref_genome,
                     reference_path, filter_names, max_merged,
-                    max_records_per_block, coalesce, pack)
+                    max_records_per_block, coalesce, pack, mesh)
         return
     # materialized serving: repeated queries of one signature against an
     # immutable store slice the full-store combined text instead of
@@ -213,7 +216,7 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
     # pattern); the build is non-reentrant, so the index's own
     # full-store build runs through the engine path below
     idx_srv = None
-    if isinstance(store, ColumnarStore):
+    if isinstance(store, ColumnarStore) and mesh is None:
         idx_srv = si.lookup_for_query(store, qc, qp, vid, device,
                                       template_path, reference_path,
                                       pack=pack)
@@ -234,7 +237,7 @@ def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
         yield from _iter_interval_blocks(
             store, iv, qc, qp, vid, device, ref_genome, reference_path,
             filter_names, max_merged, max_records_per_block, coalesce,
-            pack)
+            pack, mesh)
 
 
 iter_vcf_query_block.ooc_windows = 0
@@ -242,7 +245,8 @@ iter_vcf_query_block.ooc_windows = 0
 
 def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
                           reference_path, filter_names, max_merged,
-                          max_records_per_block, coalesce, pack):
+                          max_records_per_block, coalesce, pack,
+                          mesh=None):
     """Record lines of ONE interval on ONE (window) store — the chunked,
     pipelined block-engine body shared by in-RAM and out-of-core
     stores."""
@@ -301,7 +305,7 @@ def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
             store, qc, vid, civ, device, ref_genome=ref_genome,
             max_merged=max_merged, sequential_fn=make_seq_fn(),
             filter_name_by_field_idx=filter_names, coalesce=coalesce,
-            pack=pack, **pad_kw)
+            pack=pack, mesh=mesh, **pad_kw)
         next(g)
         if pending is not None:
             yield from next(pending)

@@ -8,23 +8,48 @@ Usage:
        | --produce-interesting-positions | --produce-histogram]
       [--engine block|sequential] [--device cuda|cpu] [-p page_size]
       [-s segment_size] [--ooc] [-r rank] [--num-ranks N]
+      [--parallel-ranks] [--mesh POSxROW]
 
 Takes the JAX tool's arguments plus `--device`, the counterpart of
-`--platform`.  `--produce-Broad-GVCF` with the block engine (the
-default) runs the port's device combine on that device, and so does
-the paged combined stream (`-p`); with `--ooc` (or past the automatic
-size threshold) the block engine streams the store's column windows.
-Every other query mode, `--java-vcf` and `--engine sequential` run on
-the host.  The fetch pack is on by default on a CUDA device and off on
-the CPU; callers of `main` / `run_rank` (tests, chip_smoke.py) force it
-with the `pack` keyword.  `--mesh`, `--platform` and `--parallel-ranks`
-are refused.
+`--platform` (which is refused).  `--produce-Broad-GVCF` with the block
+engine (the default) runs the port's device combine on that device, and
+so does the paged combined stream (`-p`); with `--ooc` (or past the
+automatic size threshold) the block engine streams the store's column
+windows.  Every other query mode, `--java-vcf` and `--engine
+sequential` run on the host.  The fetch pack is on by default on a CUDA
+device and off on the CPU; callers of `main` / `run_rank` (tests,
+chip_smoke.py) force it with the `pack` keyword.
+
+Distribution, as in the JAX tool:
+
+  --parallel-ranks  one worker process per rank (column partition) of
+                    `--num-ranks`, each `python -m
+                    genomicsdb_tpu_torch.tools.gdb_query ... --device d`
+                    (d = cuda:(i % cards) on a CUDA device), their
+                    outputs gathered in rank order by this process (the
+                    reference's MPI model)
+  --mesh PxR        the block engine's combine sharded over a
+                    ("pos", "row") mesh of P*R rank processes
+                    (`parallel.sharded`); this process spawns them, or,
+                    started by a launcher (torchrun) with a world of P*R
+                    ranks, is one of them.  The mesh's first rank writes
+                    the output; the backend follows the layout (NCCL
+                    with a card per rank, gloo when ranks share a card
+                    or run on the CPU).  The text equals the unsharded
+                    query's.
+
+A rank that fails fails the whole query, with its stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import subprocess
 import sys
+import threading
+import time
 
 from ..core.config import INT64_MAX, ImportParams, QueryParams
 from ..device import resolve_device
@@ -117,10 +142,10 @@ def _open_store(args, qp, workspace):
     return ws.open_array(workspace, qp.array_name)
 
 
-def run_rank(args, rank: int, device, pack=None) -> str:
+def run_rank(args, rank: int, device, pack=None, mesh=None) -> str:
     """One rank's output text: the block-engine combined gVCF on
-    `device` (`pack` as in driver.run_vcf_query_block), every other
-    query mode on the host."""
+    `device` (`pack` and `mesh` as in driver.run_vcf_query_block), every
+    other query mode on the host."""
     ip, qp, vid, store = load_context(args, rank)
     from ..store.fragment_v2 import OocArray
     if isinstance(store, OocArray) and not (
@@ -181,7 +206,8 @@ def run_rank(args, rank: int, device, pack=None) -> str:
                                          reference_path=refg)
         return qdriver.run_vcf_query_block(store, qc, qp, vid, device,
                                            template_path=tmpl,
-                                           reference_path=refg, pack=pack)
+                                           reference_path=refg, pack=pack,
+                                           mesh=mesh)
     if args.output_format in ("Cotton-JSON", "Positions-JSON"):
         from ..query import json_output
         from ..query.variants_path import gt_get_column_interval
@@ -220,7 +246,11 @@ def _build_parser():
     p.add_argument("--num-ranks", type=int, default=1,
                    help="gather outputs of ranks [rank, rank+num_ranks)")
     p.add_argument("--parallel-ranks", action="store_true",
-                   help="refused on the port")
+                   help="run each rank in its OWN worker process and "
+                        "gather stdout in rank order — the reference's "
+                        "MPI rank-per-partition execution model "
+                        "(vcf2tiledb.cc:44-52, gt_mpi_gather.cc:166-295) "
+                        "with this process as the root gatherer")
     p.add_argument("--rank-piece", action="store_true",
                    help=argparse.SUPPRESS)   # internal: worker mode
     p.add_argument("--no-vcf-header", action="store_true",
@@ -242,8 +272,10 @@ def _build_parser():
     p.add_argument("--java-vcf", dest="java_vcf", action="store_true",
                    help="htsjdk-style rendering for --produce-Broad-GVCF")
     p.add_argument("--mesh", default=None, metavar="POSxROW",
-                   help="refused on the port (the sharded combine is not "
-                        "ported yet)")
+                   help="run the block-engine combine sharded over an "
+                        "n_pos x n_row mesh of rank processes (e.g. 2x2): "
+                        "position axis = records, row axis = samples; "
+                        "output identical to the unsharded query")
     p.add_argument("--engine", choices=["sequential", "block"],
                    default="block",
                    help="combined-VCF engine (default: block — the "
@@ -264,15 +296,221 @@ def _build_parser():
 
 
 def _refuse(args) -> None:
-    if args.mesh:
-        raise SystemExit("gdb_query: --mesh is not supported on the port "
-                         "(the sharded combine is not ported yet)")
     if args.platform:
         raise SystemExit("gdb_query: --platform selects a jax platform; "
                          "the port takes --device")
-    if args.parallel_ranks:
-        raise SystemExit("gdb_query: --parallel-ranks is not supported on "
-                         "the port")
+    if args.mesh and not (args.produce_Broad_GVCF and args.engine == "block"
+                          and not args.java_vcf and args.page_size == 0):
+        raise SystemExit("gdb_query: --mesh shards the block engine's "
+                         "combine: it takes --produce-Broad-GVCF with the "
+                         "block engine, without -p or --java-vcf")
+    if args.mesh and args.parallel_ranks:
+        raise SystemExit("gdb_query: --mesh and --parallel-ranks are two "
+                         "ways to distribute a query; give one")
+
+
+def _mesh_shape(spec: str):
+    try:
+        n_pos, n_row = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"gdb_query: --mesh takes POSxROW, got {spec!r}")
+    if n_pos < 1 or n_row < 1:
+        raise SystemExit(f"gdb_query: --mesh {spec}: both sides must be >= 1")
+    return n_pos, n_row
+
+
+def _strip(raw_argv, with_value, flags):
+    """raw_argv without the options in `with_value` (and their values,
+    also in the --opt=value form) and the flags in `flags`."""
+    out, skip = [], False
+    for a in raw_argv:
+        if skip:
+            skip = False
+        elif a in with_value:
+            skip = True
+        elif a in flags or a.split("=", 1)[0] in with_value:
+            continue
+        else:
+            out.append(a)
+    return out
+
+
+def child_env(**extra) -> dict:
+    """This process's environment for a worker process, with the
+    directory holding this package first on PYTHONPATH (so `python -m
+    genomicsdb_tpu_torch...` resolves from any working directory), plus
+    `extra`."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=root + (os.pathsep + path
+                                               if path else ""), **extra)
+
+
+def _drain(stream, sink: list) -> threading.Thread:
+    t = threading.Thread(target=lambda: sink.append(stream.read()),
+                         daemon=True)
+    t.start()
+    return t
+
+
+def _parallel_rank_pieces(raw_argv, args, device):
+    """Spawn one gdb_query worker PROCESS per rank and gather their
+    stdout in rank order — the reference's MPI execution model
+    (rank-per-partition processes, root MPI_Gatherv of the serialized
+    results, gt_mpi_gather.cc:166-295).  Worker i runs on `device`:
+    cuda:(i % cards) on a CUDA device, so every worker on a one-card
+    machine uses cuda:0."""
+    import torch
+    base = _strip(raw_argv, ("-r", "--rank", "--num-ranks", "--device"),
+                  ("--parallel-ranks",))
+    ranks = range(args.rank, args.rank + args.num_ranks)
+    procs = []
+    for i, r in enumerate(ranks):
+        dev = "cpu" if device.type == "cpu" else \
+            f"cuda:{i % torch.cuda.device_count()}"
+        cmd = [sys.executable, "-m", "genomicsdb_tpu_torch.tools.gdb_query",
+               *base, "-r", str(r), "--num-ranks", "1", "--rank-piece",
+               "--device", dev]
+        if i > 0:
+            cmd.append("--no-vcf-header")
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE,
+                                      env=child_env()))
+    pieces, errs = [], []
+    for r, pr in zip(ranks, procs):
+        out, err = pr.communicate()
+        if pr.returncode != 0:
+            errs.append(f"rank {r}: exit {pr.returncode}: "
+                        f"{err.decode(errors='replace')[-2000:]}")
+        pieces.append(out.decode())
+    if errs:
+        raise SystemExit("gdb_query --parallel-ranks failed:\n"
+                         + "\n".join(errs))
+    return pieces
+
+
+#: the start of the line of counts each mesh rank prints on stderr
+REPORT = "gdb_query mesh rank report: "
+
+
+def free_port() -> int:
+    """A TCP port that is free on this host now (for a rendezvous)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_mesh(raw_argv, world: int) -> str:
+    """Run this command line as `world` mesh rank processes on this host
+    (the launcher's environment: RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and return the first
+    rank's stdout.  The ranks' stderr follows on this process's stderr;
+    each rank's report line is also parsed into
+    `spawn_mesh.rank_reports`.  A rank that exits non-zero ends the
+    others and fails the query with its stderr."""
+    port = free_port()
+    procs, outs, errs, threads = [], [], [], []
+    try:
+        for r in range(world):
+            env = child_env(RANK=str(r), WORLD_SIZE=str(world),
+                            LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                            MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            pr = subprocess.Popen(
+                [sys.executable, "-m", "genomicsdb_tpu_torch.tools.gdb_query",
+                 *raw_argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                env=env)
+            procs.append(pr)
+            outs.append([])
+            errs.append([])
+            threads += [_drain(pr.stdout, outs[-1]),
+                        _drain(pr.stderr, errs[-1])]
+        failed = None
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            time.sleep(0.05)
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs)
+                           if p.returncode != 0), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+        for t in threads:
+            t.join()
+    text = [b"".join(e).decode(errors="replace") for e in errs]
+    if failed is not None:
+        raise SystemExit(f"gdb_query --mesh: rank {failed} exited "
+                         f"{procs[failed].returncode}:\n"
+                         f"{text[failed][-4000:]}")
+    reports = []
+    for t in text:
+        for line in t.splitlines():
+            if line.startswith(REPORT):
+                reports.append(json.loads(line[len(REPORT):]))
+            print(line, file=sys.stderr)
+    spawn_mesh.rank_reports = sorted(reports, key=lambda d: d["rank"])
+    return b"".join(outs[0]).decode()
+
+
+spawn_mesh.rank_reports = []
+
+
+def _mesh_pieces(args, device, n_pos: int, n_row: int):
+    """This process as one rank of the mesh: its pieces of the output
+    (the header alone off the first rank), whether it is the first rank,
+    and a report line on stderr: its counts, the seconds it took to join
+    the mesh (`mesh_s`) and to run its query (`query_s`)."""
+    import torch.distributed as dist
+    from ..ops import fused_combine as FC
+    from ..parallel import comm
+    from ..parallel.sharded import make_mesh, mesh_combine
+    owned = not dist.is_initialized()
+    t0 = time.perf_counter()
+    mesh = make_mesh(n_pos, n_row, device)
+    t1 = time.perf_counter()
+    try:
+        pieces = [run_rank(args, r, mesh.device, mesh=mesh)
+                  for r in range(args.rank, args.rank + args.num_ranks)]
+        report = {
+            "rank": mesh.rank, "pos": mesh.pos, "row": mesh.row,
+            "device": str(mesh.device), "backend": mesh.backend,
+            "mesh_s": t1 - t0, "query_s": time.perf_counter() - t1,
+            "blocks": mesh_combine.blocks,
+            "general_path_blocks": mesh_combine.general_path_blocks,
+            "launches": FC.fused_gather_remap.launches,
+            "all_gathers": comm.all_gather.calls,
+            "all_gather_bytes": comm.all_gather.bytes}
+    finally:
+        # the DeviceMesh's groups go before the process group: a group
+        # that outlives destroy_process_group aborts the interpreter's
+        # exit (gloo)
+        del mesh
+        if owned:
+            dist.destroy_process_group()
+    print(REPORT + json.dumps(report), file=sys.stderr)
+    return pieces, report["rank"] == 0
+
+
+def _in_launched_world() -> bool:
+    import torch.distributed as dist
+    return dist.is_initialized() or (
+        "RANK" in os.environ and "WORLD_SIZE" in os.environ)
+
+
+def rank_output(argv) -> str:
+    """Parse a gdb_query argv (with its `--device`) and return the output
+    text (the rank-pool worker entry, parallel/rank_pool.py — no stdout
+    side effects, no file knobs)."""
+    args = _build_parser().parse_args(argv)
+    _refuse(args)
+    device = resolve_device(args.device)
+    return "".join(run_rank(args, r, device)
+                   for r in range(args.rank, args.rank + args.num_ranks))
 
 
 def main(argv=None, *, pack=None):
@@ -282,13 +520,25 @@ def main(argv=None, *, pack=None):
         p.error("one of -j/--query-json or --query-pb is required")
     _refuse(args)
     device = resolve_device(args.device)
-    import json as _json
+    raw = list(argv) if argv is not None else sys.argv[1:]
     try:
-        pieces = [run_rank(args, r, device, pack)
-                  for r in range(args.rank, args.rank + args.num_ranks)]
+        if args.mesh:
+            n_pos, n_row = _mesh_shape(args.mesh)
+            if not _in_launched_world():
+                # the first rank wrote the output (or the query's file)
+                sys.stdout.write(spawn_mesh(raw, n_pos * n_row))
+                return
+            pieces, first = _mesh_pieces(args, device, n_pos, n_row)
+            if not first:
+                return
+        elif args.parallel_ranks and args.num_ranks > 1:
+            pieces = _parallel_rank_pieces(raw, args, device)
+        else:
+            pieces = [run_rank(args, r, device, pack)
+                      for r in range(args.rank, args.rank + args.num_ranks)]
     except FileNotFoundError as e:
         raise SystemExit(f"gdb_query: file not found: {e.filename or e}")
-    except _json.JSONDecodeError as e:
+    except json.JSONDecodeError as e:
         raise SystemExit(f"gdb_query: malformed JSON in "
                          f"{args.query_json}: {e}")
     except KeyError as e:

@@ -67,14 +67,20 @@ def test_port_sequential_route_and_head_interval(cohort):
 
 
 def test_port_refuses_mesh_and_missing_card(cohort, monkeypatch):
+    """The mesh shards the block engine's one-shot combine only (the
+    paged stream with --mesh is refused), and --device cuda without a
+    card raises, with or without --mesh."""
     import torch
     with pytest.raises(SystemExit, match="--mesh"):
         torch_gdb_query.main(["-j", cohort.query, "--produce-Broad-GVCF",
-                              "--device", "cpu", "--mesh", "2x1"])
+                              "--device", "cpu", "--mesh", "2x1", "-p",
+                              "4096"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="not available"):
-        torch_gdb_query.main(["-j", cohort.query, "--produce-Broad-GVCF",
-                              "--device", "cuda"])
+    for extra in ([], ["--mesh", "2x1"]):
+        with pytest.raises(RuntimeError, match="not available"):
+            torch_gdb_query.main(["-j", cohort.query,
+                                  "--produce-Broad-GVCF", "--device",
+                                  "cuda"] + extra)
 
 
 def test_port_runs_with_jax_blocked(cohort):

@@ -3,8 +3,9 @@ forms against its plain twin (bit-exact, cells with no live call
 included) at synthetic shapes, at a ragged one (records and samples
 not multiples of the tile), at m 16 / ploidy 6 (PL in genotype chunks)
 and at the largest launch of the 1,000-sample block query; and block
-queries on the card, with the fetch pack on and off, against the same
-query on the CPU.
+queries on the card, with the fetch pack on and off, over the socket
+server, and on a mesh of rank processes (1x1 on NCCL, 2x1 on gloo
+sharing one card), against the same query on the CPU.
 
 Marked `gpu`; each test skips where torch sees no CUDA card (decided in
 the `cuda` fixture, never at import).  On a machine with a card:
@@ -249,3 +250,33 @@ def test_socket_server_on_the_card(cuda, tmp_path):
     finally:
         ref.shutdown()
         card.shutdown()
+
+
+@pytest.mark.parametrize("shape", ["1x1", "2x1"])
+def test_mesh_on_the_card(cuda, tmp_path, shape):
+    """`gdb_query --mesh` on the card: 1x1 on NCCL (a card per rank),
+    2x1 on gloo where the ranks share a card; every rank launched the
+    CUDA kernel for every block, and the text equals the unsharded
+    query's on the CPU."""
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
+    c = write_cohort(str(tmp_path), 40, 300, seed=2)
+    vcf2gdb.main([c.loader])
+
+    def run(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gdb_query.main(["-j", c.query, "--produce-Broad-GVCF", *extra])
+        return buf.getvalue()
+
+    got = run("--device", "cuda", "--mesh", shape)
+    assert got and got == run("--device", "cpu")
+    world = int(shape[0]) * int(shape[2])
+    backend = "nccl" if world <= torch.cuda.device_count() else "gloo"
+    reports = gdb_query.spawn_mesh.rank_reports
+    assert [r["rank"] for r in reports] == list(range(world))
+    for r in reports:
+        assert r["backend"] == backend
+        assert r["device"].startswith("cuda:")
+        assert r["launches"] == r["blocks"] > 0
+        assert r["general_path_blocks"] == 0

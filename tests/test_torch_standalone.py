@@ -173,6 +173,66 @@ def test_stream_server_help_runs_with_jax_blocked():
     assert "--device" in res.stdout and "--platform" not in res.stdout
 
 
+PARALLEL_MODULES = ("genomicsdb_tpu_torch.parallel.comm",
+                    "genomicsdb_tpu_torch.parallel.sharded",
+                    "genomicsdb_tpu_torch.parallel.multihost",
+                    "genomicsdb_tpu_torch.parallel.rank_pool",
+                    "genomicsdb_tpu_torch.parallel.spark_api",
+                    "genomicsdb_tpu_torch.parallel.local_spark",
+                    "genomicsdb_tpu_torch.parallel.repartition",
+                    "genomicsdb_tpu_torch.query.serialize",
+                    "genomicsdb_tpu_torch.tools.scaling_bench")
+
+
+def test_distribution_runs_with_jax_blocked(cohort, tmp_path):
+    """The distribution modules are in the AST scan and import where jax
+    and genomicsdb_tpu cannot load; there `gdb_query --mesh 2x2` and
+    `--parallel-ranks` (a 2-partition loader) run on the CPU and give
+    the unsharded, in-process texts."""
+    import json
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in PARALLEL_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in scanned, mod
+    loader = str(tmp_path / "loader2.json")
+    with open(loader, "w") as f:
+        json.dump({"column_partitions": [
+            {"begin": b, "workspace": str(tmp_path / "ws2"),
+             "array_name": f"p{i}"}
+            for i, b in enumerate((0, cohort.region // 2))],
+            "callset_mapping_file": cohort.callsets,
+            "vid_mapping_file": cohort.vid,
+            "treat_deletions_as_intervals": True}, f)
+    query = str(tmp_path / "query2.json")
+    with open(query, "w") as f:
+        json.dump({"workspace": "", "array_name": "",
+                   "query_column_ranges": [{"range_list": [
+                       {"low": 0, "high": cohort.region}]}],
+                   "vid_mapping_file": cohort.vid,
+                   "callset_mapping_file": cohort.callsets,
+                   "attributes": []}, f)
+    mesh = ["-j", cohort.query, "--produce-Broad-GVCF", "--device", "cpu",
+            "--mesh", "2x2"]
+    ranks = ["-j", query, "-l", loader, "--produce-Broad-GVCF", "--device",
+             "cpu", "--num-ranks", "2", "--parallel-ranks"]
+    code = (BLOCK
+            + "".join(f"import {m}\n" for m in PARALLEL_MODULES)
+            + "from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb\n"
+            f"vcf2gdb.main([{loader!r}, '--rank', '0'])\n"
+            f"vcf2gdb.main([{loader!r}, '--rank', '1'])\n"
+            f"gdb_query.main({mesh!r})\n"
+            "sys.stdout.write('\\f')\n"
+            f"gdb_query.main({ranks!r})\n"
+            "assert not [m for m in sys.modules if m.startswith(("
+            "'jax.', 'genomicsdb_tpu.'))]\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    got_mesh, got_ranks = res.stdout.split("\f")
+    assert got_mesh == _run(torch_gdb_query.main, mesh[:-2])
+    assert got_ranks.count("\n") > 100
+    assert got_ranks == _run(torch_gdb_query.main, ranks[:-1])
+
+
 def _store_files(workspace):
     """{path relative to the workspace, fragment time masked: bytes}."""
     out = {}
