@@ -30,20 +30,19 @@ Every phase passes or the script exits non-zero:
      and queried with the port's `gdb_query --produce-Broad-GVCF`
      (block engine) on `--device cuda` with the fetch pack on (the
      card's default: narrow kernel, packed variant-row fetch; cold, then
-     warm), off (warm), off and on again, and on `--device cpu`.  The
-     texts must be byte-identical; with the pack on every block must
-     have launched the narrow kernel and the variant-row split must have
-     engaged, with it off every block the wide kernel; the block output
-     over the cohort's first records must equal the sequential
-     engine's.  The bytes each fetch mode copied to the host are
-     printed.
+     warm) and off (warm).  The texts must be byte-identical; with the
+     pack on every block must have launched the narrow kernel and the
+     variant-row split must have engaged, with it off every block the
+     wide kernel; over the cohort's first records the block output on
+     cuda must equal it on `--device cpu` and the sequential engine's.
+     The bytes each fetch mode copied to the host are printed.
   4. The main path's kernel launches: one more warm query records the
      shape (B, S, C, G_in, A_in, M, G_out, gt_w, F, Fi, Fs, form), bytes
      and byte bound of every launch; the largest launch's inputs (the
      store-wide slabs) are held against the twin in all three forms and
      timed.
   5. Serving: the port's `QueryStreamServer` in this process on cuda:0
-     answers 24 seeded 10 kb intervals of the same cohort in three
+     answers 12 seeded 10 kb intervals of the same cohort in three
      lanes, each behind warm-up queries: a persistent client with the
      serving index off (the engine lane: every block must launch the
      narrow kernel; the host-to-device bytes of its first and second
@@ -52,7 +51,8 @@ Every phase passes or the script exits non-zero:
      combine) and one-shot connections.  Every response must be
      byte-identical across lanes, the engine after the build, a
      cpu-device server (3 intervals) and four concurrent persistent
-     clients (on a cold server with the index off, then served).  Prints
+     clients of 3 queries each (on a cold server with the index off,
+     then served).  Prints
      p50/p90 per lane, the mean response bytes, the engine lane's
      launches (padded against real records) and holds its most frequent
      launch against the twin in all three forms.  Then `gdb_query -p
@@ -70,14 +70,31 @@ Every phase passes or the script exits non-zero:
      must equal the in-process `--num-ranks 4` text.  Two processes run
      a `multihost.gather_blobs_to_root` round (lengths 0 and 3 MB, 1 MB
      rounds).  Wall times beside the unsharded query's in this call.
+  7. The remaining paths: the port's bench lanes (`genomicsdb_tpu_torch.
+     bench`) in this process at the JAX bench's shapes, each printed
+     as JSON with the card: `device`, `device_fused` and
+     `device_fused_wide_1024_samples` (wide and narrow: the narrow
+     checksum must equal the wide one), `device_dense` (its checksum
+     must equal the general combine_step's on the same 8192-record
+     chunk), `cpp_sequential_baseline`, `cohort100_end_to_end` and
+     `import`; `GENOMICSDB_TPU_DENSE=1 gdb_query --device cuda` must
+     give phase 3's text without a kernel launch; a 17-allele block (the
+     general path) restricted by `remap_rows` must equal the
+     unrestricted step's rows; `tools.deletion_bench` (100 x 1,000) and
+     `tools.wide_cohort_bench --samples 1000 --records 2000 --windows 2`
+     in this process and `tools.ooc_bench --target-bytes 2e8` in its own
+     (more than one window), each with its own checks; the graft entry's
+     step on cuda must equal it on cpu, and `dryrun_multichip(4)` (four
+     ranks on cuda:0, gloo) must pass.  The lanes' and tools' kernel
+     launches join the main path's in the kernel JSON.
 
 Times are CUDA events around back-to-back calls after a warm-up.  A
 kernel's time is that of launches bound once (only a ctypes call between
 two launches); the wrapper's call time (checks, plan and allocations
 included) is printed beside it; the twin's is that of its calls.
 
-The last lines are the kernel JSON, the card's name and power limit,
-and `{"ok": true, "device": {...}}`.
+The last lines are each phase's wall time, the kernel JSON, the card's
+name and power limit, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -98,7 +115,7 @@ KERNEL_SOURCE = "genomicsdb_tpu_torch/csrc/fused_gather_remap.cu"
 # narrow form, and _make_kernel (the wide, non-mixed function)
 PALLAS = "genomicsdb_tpu/ops/pallas_combine.py"
 E2E_SAMPLES, E2E_RECORDS = 1000, 4000
-SERVING_QUERIES, SERVING_BP = 24, 10_000
+SERVING_QUERIES, SERVING_BP = 12, 10_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # the kernel's forms: (narrow, narrow_scalars)
 FORMS = {"wide": (False, False), "narrow": (True, False),
@@ -423,22 +440,15 @@ def phase_end_to_end(torch, card):
     print(f"import (vcf2gdb): {time.perf_counter() - t0:.2f} s")
     base = ["-j", c.query, "--produce-Broad-GVCF", "--engine", "block"]
     cuda = base + ["--device", "cuda"]
-    # the card's default (pack on) cold, then warm on / off / off / on
+    # the card's default (pack on) cold, then warm on / off
     cold, t_cold, _ = _counted_query(torch, cuda)
-    on1, t_on1, c_on = _counted_query(torch, cuda)
-    off1, t_off1, c_off = _counted_query(torch, cuda, pack=False)
-    off2, t_off2, _ = _counted_query(torch, cuda, pack=False)
-    on2, t_on2, _ = _counted_query(torch, cuda)
-    t0 = time.perf_counter()
-    on_cpu = _query(base + ["--device", "cpu"])
-    t_cpu = time.perf_counter() - t0
+    on1, t_on, c_on = _counted_query(torch, cuda)
+    off1, t_off, c_off = _counted_query(torch, cuda, pack=False)
     records = len(on1.splitlines())
     positions = c.region + 1
-    t_on, t_off = (t_on1 + t_on2) / 2, (t_off1 + t_off2) / 2
     print(f"block query: {records} records; cuda pack on: cold "
-          f"{t_cold:.3f} s, warm {t_on1:.3f} / {t_on2:.3f} s; cuda pack "
-          f"off: warm {t_off1:.3f} / {t_off2:.3f} s; cpu device "
-          f"{t_cpu:.3f} s [{card}]")
+          f"{t_cold:.3f} s, warm {t_on:.3f} s; cuda pack off: warm "
+          f"{t_off:.3f} s [{card}]")
     print(f"warm pack on: {positions / t_on:.1f} positions/s, "
           f"{records / t_on:.1f} records/s; pack off: "
           f"{positions / t_off:.1f} positions/s, {records / t_off:.1f} "
@@ -453,9 +463,8 @@ def phase_end_to_end(torch, card):
     print(f"pack off: {c_off}")
     if records == 0:
         raise AssertionError("the block query produced no records")
-    if not (cold == on1 == off1 == off2 == on2 == on_cpu):
-        raise AssertionError("pack on / pack off / --device cpu texts "
-                             "differ")
+    if not cold == on1 == off1:
+        raise AssertionError("pack on / pack off texts differ")
     if not (c_on["narrow_launches"] == c_on["launches"] == c_on["blocks"]
             > 0 and c_on["general_path_blocks"] == 0
             and c_on["wide_blocks_when_packing"] == 0):
@@ -472,12 +481,15 @@ def phase_end_to_end(torch, card):
     blk_head = _query(head + ["--engine", "block", "--device", "cuda"])
     seq_head = _query(head + ["--engine", "sequential", "--device",
                               "cuda"])
+    t0 = time.perf_counter()
+    cpu_head = _query(head + ["--engine", "block", "--device", "cpu"])
+    t_cpu = time.perf_counter() - t0
     n_head = len(seq_head.splitlines())
-    if blk_head != seq_head or n_head == 0:
-        raise AssertionError("block engine differs from the sequential "
-                             "engine over the head interval")
-    print(f"block == sequential over columns {c.head_interval} "
-          f"({n_head} records)")
+    if not blk_head == seq_head == cpu_head or n_head == 0:
+        raise AssertionError("over the head interval, the block engine on "
+                             "cuda, on cpu and the sequential engine differ")
+    print(f"block (cuda) == block (--device cpu, {t_cpu:.3f} s) == "
+          f"sequential over columns {c.head_interval} ({n_head} records)")
     return c_on, c_off, c, on1
 
 
@@ -555,7 +567,7 @@ def _pct_ms(lats, q):
     return 1e3 * lats[min(len(lats) - 1, int(q * len(lats)))]
 
 
-def _concurrent(SS, addr, docs, want, n_clients=4, per_client=6):
+def _concurrent(SS, addr, docs, want, n_clients=4, per_client=3):
     """n_clients persistent clients in threads, each cycling through the
     documents; returns the mismatches and errors."""
     import threading
@@ -772,7 +784,7 @@ def phase_serving(torch, np, c, card, main_text):
         if errs or errs2:
             raise AssertionError("serving, concurrent clients: "
                                  + "; ".join(errs + errs2))
-        print(f"serving: 4 concurrent persistent clients x 6 queries each "
+        print(f"serving: 4 concurrent persistent clients x 3 queries each "
               f"== single-client bytes: engine on a cold server {dt:.3f} s, "
               f"served {dt2:.3f} s [{card}]")
     finally:
@@ -1044,6 +1056,163 @@ def phase_profile(torch, c, card, out_dir):
                           for k in sorted(sums)) + f" [{card}]")
 
 
+def _counted(torch, fn):
+    """(fn(), its wide kernel launches, its narrow ones), every count set
+    to 0 just before the call and read just after."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    for obj, name in _counters():
+        setattr(obj, name, 0)
+    res = fn()
+    torch.cuda.synchronize()
+    n, nn = FC.fused_gather_remap.launches, \
+        FC.fused_gather_remap.narrow_launches
+    return res, n - nn, nn
+
+
+def _printed_json(fn) -> str:
+    """The JSON line a tool's main prints."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    return buf.getvalue().strip().splitlines()[-1]
+
+
+def phase_remaining(torch, np, c, card, main_text):
+    """The bench lanes in this process at the JAX bench's shapes, the
+    dense branch and the remap_rows restriction, the three bench tools
+    and the graft entry, all on cuda:0.  Returns the (wide, narrow)
+    kernel launches of the lanes and in-process tools."""
+    from genomicsdb_tpu_torch import bench as TB
+    from genomicsdb_tpu_torch import graft_entry as GE
+    from genomicsdb_tpu_torch.ops import combine_step as TC
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    from genomicsdb_tpu_torch.ops.cell_block import synthesize_cohort
+    from genomicsdb_tpu_torch.query import block_writer as BW
+    from genomicsdb_tpu_torch.tools import deletion_bench, wide_cohort_bench
+    from genomicsdb_tpu_torch.tools.gdb_query import child_env
+    dev = torch.device("cuda:0")
+    wide = narrow = 0
+    lanes = {}
+    for name, fn in (
+            ("device", lambda: TB.bench_device(dev)),
+            ("device_fused", lambda: TB.bench_device_fused(dev)),
+            ("device_fused_wide_1024_samples",
+             lambda: TB.bench_device_fused_wide_1024(dev)),
+            ("device_dense", lambda: TB.bench_device_dense(dev)),
+            ("cpp_sequential_baseline", TB.bench_cpp_baseline),
+            ("cohort100_end_to_end",
+             lambda: TB.bench_cohort_end_to_end(dev)),
+            ("import", TB.bench_import)):
+        t0 = time.perf_counter()
+        lanes[name], w, nn = _counted(torch, fn)
+        wide, narrow = wide + w, narrow + nn
+        print(f"bench lane {name} [{card}]: {time.perf_counter() - t0:.1f} "
+              f"s in all, {w} wide and {nn} narrow kernel launches; "
+              f"{json.dumps(lanes[name])}")
+    # the fused lanes raise unless narrow == wide; all the device lanes
+    # over the whole block must agree, and the dense lane's chunk with
+    # the general step on the same chunk
+    if lanes["device"]["checksum"] != lanes["device_fused"]["checksum"]:
+        raise AssertionError("bench lanes: general and kernel checksums "
+                             "differ")
+    blk = synthesize_cohort(128, 2048, 262144, seed=0)
+    t = TC.block_to_tensors(blk, dev)
+    n = TB.CHUNK
+    out = TC.combine_step(*t[:12], *(x[:n] for x in t[12:17]),
+                          max_merged=4, ploidy=2)
+    chk = TB._wrap32(TB.checksum(out).item())
+    if chk != lanes["device_dense"]["checksum"]:
+        raise AssertionError(f"device_dense checksum "
+                             f"{lanes['device_dense']['checksum']} != the "
+                             f"general step's {chk} on the same chunk")
+    print(f"bench lanes: narrow == wide checksums at both shapes; "
+          f"device_dense == combine_step on the first {n} records ({chk})")
+    del t, out, blk
+
+    # the dense branch through gdb_query on phase 3's cohort
+    os.environ["GENOMICSDB_TPU_DENSE"] = "1"
+    try:
+        BW.render_block_vcf_pipelined.dense_blocks = 0
+        t0 = time.perf_counter()
+        text, w, nn = _counted(torch, lambda: _query(
+            ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]))
+        dense_s = time.perf_counter() - t0
+        dense_blocks = BW.render_block_vcf_pipelined.dense_blocks
+    finally:
+        del os.environ["GENOMICSDB_TPU_DENSE"]
+    if text != main_text or not dense_blocks or w or nn:
+        raise AssertionError(f"GENOMICSDB_TPU_DENSE=1: {dense_blocks} dense "
+                             f"blocks, {w + nn} kernel launches, text equal "
+                             f"to phase 3's: {text == main_text}")
+    print(f"GENOMICSDB_TPU_DENSE=1 gdb_query --device cuda: {dense_blocks} "
+          f"dense blocks, no kernel launch, phase 3's text byte for byte, "
+          f"{dense_s:.3f} s [{card}]")
+
+    # one general-path block (17 merged alleles), restricted and not
+    gblk = _synthetic_block(np, "general m17", 256, 256, 16384, 17, 2,
+                            False, keep_b=1024)
+    if FC.kernel_takes(gblk, 17, 2, False):
+        raise AssertionError("the 17-allele block passed the kernel's gates")
+    B = gblk.live.shape[0]
+    rows = BW._bucket_rows(np.arange(0, B, 3), 16)
+    t = TC.block_to_tensors(gblk, dev)
+    full = TC.combine_step(*t, max_merged=17, ploidy=2)
+    restricted = TC.combine_step(*t, remap_rows=rows, max_merged=17,
+                                 ploidy=2)
+    idx = torch.as_tensor(rows, device=dev).long()
+    part = ("pl", "ad", "gt", "gq", "dp_format", "min_dp")
+    err = _check_against_twin(
+        torch, "remap_rows", restricted,
+        {k: v[idx] if k in part else v for k, v in full.items()})
+    print(f"combine_step remap_rows on cuda: B={B} S={gblk.live.shape[1]} "
+          f"m 17, {len(rows)} restricted rows == the unrestricted step's, "
+          f"bit for bit (max abs err {err})")
+    del t, full, restricted
+
+    # the three bench tools
+    tools = {
+        "deletion_bench": lambda: deletion_bench.main(["--device", "cuda"]),
+        "wide_cohort_bench": lambda: wide_cohort_bench.main(
+            ["--samples", "1000", "--records", "2000", "--windows", "2",
+             "--device", "cuda"]),
+    }
+    for name, fn in tools.items():
+        t0 = time.perf_counter()
+        line, w, nn = _counted(torch, lambda: _printed_json(fn))
+        wide, narrow = wide + w, narrow + nn
+        print(f"{name} [{card}]: {time.perf_counter() - t0:.1f} s, {w} wide "
+              f"and {nn} narrow kernel launches; {line}")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "genomicsdb_tpu_torch.tools.ooc_bench",
+                        "--target-bytes", "2e8", "--device", "cuda"],
+                       capture_output=True, text=True, timeout=600,
+                       env=child_env())
+    if r.returncode != 0:
+        raise AssertionError(f"ooc_bench: {r.stderr[-3000:]}")
+    ooc = json.loads(r.stdout.strip().splitlines()[-1])
+    if ooc["windows"] <= 1:
+        raise AssertionError(f"ooc_bench: {ooc['windows']} window(s)")
+    print(f"ooc_bench (own process) [{card}]: {time.perf_counter() - t0:.1f} "
+          f"s; {json.dumps(ooc)}")
+
+    # the graft entry: one step on cuda == on cpu; the 4-rank dryrun
+    fn, args = GE.entry()
+    got = fn(*args)
+    fn_c, args_c = GE.entry("cpu")
+    want = fn_c(*args_c)
+    err = _check_against_twin(torch, "graft entry", got,
+                              {k: v.to(dev) for k, v in want.items()})
+    t0 = time.perf_counter()
+    rep = GE.dryrun_multichip(4)
+    print(f"graft entry: fn(*args) on cuda == on cpu (max abs err {err}); "
+          f"dryrun_multichip(4): mesh {rep['mesh']} on {rep['device']} "
+          f"[{rep['backend']}], text == the sequential engine's "
+          f"({rep['text'].count(chr(10))} records), "
+          f"{time.perf_counter() - t0:.1f} s with start-up [{card}]")
+    return wide, narrow
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA card.")
@@ -1067,15 +1236,33 @@ def main() -> int:
               "card", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
+    walls = []
+    t0 = time.perf_counter()
+
+    def lap(phase):
+        nonlocal t0
+        walls.append(f"{phase} {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
     card = phase_environment(torch)
+    lap("1")
     phase_kernel_vs_twin(torch, np, dev)
+    lap("2")
     c_on, c_off, cohort, main_text = phase_end_to_end(torch, card)
+    lap("3")
     main, largest = phase_main_path(torch, cohort, card)
+    lap("4")
     phase_serving(torch, np, cohort, card, main_text)
+    lap("5")
     mesh_launches = phase_distribution(torch, np, cohort, card, main_text,
                                        largest)
+    lap("6")
+    lane_wide, lane_narrow = phase_remaining(torch, np, cohort, card,
+                                             main_text)
+    lap("7")
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))
+    print("phase walls: " + ", ".join(walls))
 
     def entry(name, replaces, form, launches):
         # times and bound at the main path's largest launch
@@ -1088,12 +1275,13 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("fused_gather_remap (wide)", f"{PALLAS}:875", "wide",
-              c_off["launches"] + mesh_launches),
+              c_off["launches"] + mesh_launches + lane_wide),
         entry("fused_gather_remap (narrow int16 outputs)",
-              f"{PALLAS}:1070", "narrow+scalars", c_on["narrow_launches"]),
+              f"{PALLAS}:1070", "narrow+scalars",
+              c_on["narrow_launches"] + lane_narrow),
         entry("fused_gather_remap (wide, non-mixed: the per-sample "
               "_make_kernel function)", f"{PALLAS}:264", "wide",
-              c_off["launches"] + mesh_launches),
+              c_off["launches"] + mesh_launches + lane_wide),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,23 @@ and masked reductions:
   5. INFO combine ops: median, int median, ordered float sum, DP logic
   6. GQ / MIN_DP / DP FORMAT collection
 
-`combine_step` serves the blocks the CUDA kernel refuses (more than 16
-merged alleles, ploidy above 6); its remap math is also the plain twin
-of that kernel.  `med_rows` restricts the INFO reductions as in the JAX
-package; its `remap_rows` restriction (the JAX CPU-device configuration)
-is not ported: the port's CPU device runs the kernel's twin.
+The same remap and reduction math backs three forms, as in the JAX
+package:
+  * combine_step        gathers the [S, C] cell tensors on the device;
+                        it serves the blocks the CUDA kernel refuses
+                        (more than 16 merged alleles, ploidy above 6),
+                        and its remap math is the plain twin of that
+                        kernel.  `med_rows` restricts the INFO
+                        reductions; `remap_rows` restricts the PL/AD/GT
+                        gathers and remaps to the variant rows (the
+                        JAX CPU-device configuration; the host rebuilds
+                        the ref-block rows)
+  * combine_step_dense  the same math on inputs the host gathered
+                        (`gather_block_host`): the JAX package's
+                        PCIe-host configuration (`GENOMICSDB_TPU_DENSE=1`)
+  * parallel.sharded    the mesh, `group=` gathering the sample axis
+All three are plain torch on either device (their JAX counterparts are
+XLA, not Pallas).
 
 Below the combine is the device->host fetch pack (the JAX module's
 `PACK_SPECS` ... `host_identity_outputs`): the big outputs are narrowed
@@ -208,21 +220,47 @@ def _restrict_rows(infog, infoig, infofsg, valid, med_rows):
     return infog[:, idx], infoig[:, idx], infofsg[:, idx], valid[idx]
 
 
+def _gather_info(f: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """[F, S, C] INFO rows -> [F, B, S] at each (record, sample)'s live
+    cell."""
+    if not f.shape[0]:
+        return f.new_empty((0,) + tuple(live.shape))
+    return torch.stack([_gather_cells(f[i], live) for i in range(f.shape[0])])
+
+
+def _gather_reduced(dp, min_dp, dp_info, info_f, info_i, info_fs, live,
+                    del_rw):
+    """The masked [B, S] DP inputs and [F, B, S] INFO inputs of the
+    cross-sample reductions: (dpfg, mdpg, dpig, infog, infoig, infofsg,
+    valid).  `del_rw` masks spanning-deletion-rewritten calls out of the
+    INFO inputs."""
+    valid = live >= 0
+    info_ok = valid if del_rw is None else (valid & ~del_rw)
+
+    def g(x):
+        return torch.where(valid, _gather_cells(x, live), INT_MISSING)
+
+    return (g(dp), g(min_dp), g(dp_info),
+            torch.where(info_ok[None], _gather_info(info_f, live),
+                        float("nan")),
+            torch.where(info_ok[None], _gather_info(info_i, live),
+                        INT_MISSING),
+            torch.where(info_ok[None], _gather_info(info_fs, live),
+                        float("nan")),
+            valid)
+
+
 def gather_on_device(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info,
                      info_f, info_i, info_fs, live, del_rw=None):
     """Per-(record, sample) live-cell gather of the [S, C, ...] cell
     tensors -> dense [B, S, ...] inputs for the remap and reduction
     math.  `del_rw` masks spanning-deletion-rewritten calls out of the
     INFO inputs."""
-    valid = live >= 0
-    info_ok = valid if del_rw is None else (valid & ~del_rw)
+    dpfg, mdpg, dpig, infog, infoig, infofsg, valid = _gather_reduced(
+        dp, min_dp, dp_info, info_f, info_i, info_fs, live, del_rw)
 
     def g(x):
         return _gather_cells(x, live)
-
-    def g_info(f):            # [F, S, C] -> [F, B, S]
-        return torch.stack([g(f[i]) for i in range(f.shape[0])]) \
-            if f.shape[0] else f.new_empty((0,) + tuple(live.shape))
 
     # plg/adg are not masked: invalid slots gather cell 0, and the remaps
     # mask their outputs through pl_len / ad_len == 0 there
@@ -231,48 +269,143 @@ def gather_on_device(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info,
         "adg": g(ad), "adlg": torch.where(valid, g(ad_len), 0),
         "gtg": torch.where(valid[..., None], g(gt), INT_MISSING),
         "gqg": torch.where(valid, g(gq), INT_MISSING),
-        "dpfg": torch.where(valid, g(dp), INT_MISSING),
-        "mdpg": torch.where(valid, g(min_dp), INT_MISSING),
-        "dpig": torch.where(valid, g(dp_info), INT_MISSING),
-        "infog": torch.where(info_ok[None], g_info(info_f), float("nan")),
-        "infoig": torch.where(info_ok[None], g_info(info_i), INT_MISSING),
-        "infofsg": torch.where(info_ok[None], g_info(info_fs),
-                               float("nan")),
-        "valid": valid,
+        "dpfg": dpfg, "mdpg": mdpg, "dpig": dpig, "infog": infog,
+        "infoig": infoig, "infofsg": infofsg, "valid": valid,
     }
 
 
 def combine_step(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
                  dp_info, info_f, info_i, info_fs, inv_bs, nr_bs,
                  rec_num_merged, rec_has_nr, live, del_rw=None,
-                 gt_len_bs=None, med_rows=None, *, max_merged: int,
-                 ploidy: int, gt_phase: bool = False,
+                 gt_len_bs=None, med_rows=None, remap_rows=None, *,
+                 max_merged: int, ploidy: int, gt_phase: bool = False,
                  mixed_ploidy: bool = False,
                  group=None) -> Dict[str, torch.Tensor]:
     """The whole combine on tensors of one device (argument order of
     `block_to_tensors`).  Returns the output dict of the JAX
     `combine_step`, with the same keys and dtypes; with `med_rows`, the
-    INFO reductions cover those rows only.  With `group`, the tensors
-    are one mesh shard's and the reductions gather the sample axis over
-    it (`_reduce_math`; the JAX `sharded_combine_step`)."""
+    INFO reductions cover those rows only.  With `remap_rows` (record
+    indices, padding repeats a row), the PL/AD/GT gathers and remaps
+    and the GQ gather run on those rows only, and pl / ad / gt / gq /
+    dp_format / min_dp come back [len(remap_rows), S, ...]; the DP and
+    INFO reductions still cover every row (the JAX CPU-device
+    configuration: ref-block rows are identity passthroughs the host
+    rebuilds, `host_identity_outputs`).  With `group`, the tensors are
+    one mesh shard's and the reductions gather the sample axis over it
+    (`_reduce_math`; the JAX `sharded_combine_step`)."""
     live = live.to(torch.int32)
     inv_bs = inv_bs.to(torch.int32)
     nr_bs = nr_bs.to(torch.int32)
     rec_num_merged = rec_num_merged.to(torch.int32)
     if gt_len_bs is not None:
         gt_len_bs = gt_len_bs.to(torch.int32)
-    g = gather_on_device(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
-                         dp_info, info_f, info_i, info_fs, live, del_rw)
+    flags = dict(max_merged=max_merged, ploidy=ploidy, gt_phase=gt_phase,
+                 mixed_ploidy=mixed_ploidy)
+    if remap_rows is None:
+        g = gather_on_device(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
+                             dp_info, info_f, info_i, info_fs, live, del_rw)
+        pl_out, ad_out, gt_out = _remap_math(
+            g["plg"], inv_bs, g["pllg"], nr_bs, g["adg"], g["adlg"],
+            g["gtg"], rec_num_merged, rec_has_nr, gt_len_bs, **flags)
+        out = _reduce_math(g["gqg"], g["dpfg"], g["mdpg"], g["dpig"],
+                           *_restrict_rows(g["infog"], g["infoig"],
+                                           g["infofsg"], g["valid"],
+                                           med_rows),
+                           group=group)
+        out.update({"pl": pl_out, "ad": ad_out, "gt": gt_out, "live": live})
+        return out
+    rows = torch.as_tensor(np.asarray(remap_rows), device=live.device).long()
+    live_r = live[rows]
+    valid_r = live_r >= 0
+
+    def g_r(x):
+        return _gather_cells(x, live_r)
+
     pl_out, ad_out, gt_out = _remap_math(
-        g["plg"], inv_bs, g["pllg"], nr_bs, g["adg"], g["adlg"], g["gtg"],
-        rec_num_merged, rec_has_nr, gt_len_bs, max_merged=max_merged,
-        ploidy=ploidy, gt_phase=gt_phase, mixed_ploidy=mixed_ploidy)
-    out = _reduce_math(g["gqg"], g["dpfg"], g["mdpg"], g["dpig"],
-                       *_restrict_rows(g["infog"], g["infoig"],
-                                       g["infofsg"], g["valid"], med_rows),
+        g_r(pl), inv_bs[rows], torch.where(valid_r, g_r(pl_len), 0),
+        nr_bs[rows], g_r(ad), torch.where(valid_r, g_r(ad_len), 0),
+        torch.where(valid_r[..., None], g_r(gt), INT_MISSING),
+        rec_num_merged[rows], rec_has_nr[rows],
+        gt_len_bs[rows] if gt_len_bs is not None else None, **flags)
+    dpfg, mdpg, dpig, infog, infoig, infofsg, valid = _gather_reduced(
+        dp, min_dp, dp_info, info_f, info_i, info_fs, live, del_rw)
+    gqg = torch.where(valid_r, g_r(gq), INT_MISSING)
+    out = _reduce_math(gqg, dpfg, mdpg, dpig,
+                       *_restrict_rows(infog, infoig, infofsg, valid,
+                                       med_rows),
                        group=group)
-    out.update({"pl": pl_out, "ad": ad_out, "gt": gt_out, "live": live})
+    out.update({"pl": pl_out, "ad": ad_out, "gt": gt_out, "live": live,
+                "dp_format": dpfg[rows], "min_dp": mdpg[rows]})
     return out
+
+
+def gather_block_host(blk, live: np.ndarray) -> Dict[str, np.ndarray]:
+    """Host-side live-cell gather (numpy): the dense per-record inputs
+    of combine_step_dense, a copy of the JAX package's
+    `gather_block_host`.  Takes a block built by either package."""
+    valid = live >= 0
+    k = np.clip(live, 0, blk.col.shape[1] - 1)
+    s_i = np.arange(blk.col.shape[0])[None, :]
+
+    info_ok = valid if blk.del_rw is None else (valid & ~blk.del_rw)
+
+    def g2(x, fill):
+        return np.where(valid, x[s_i, k], fill)
+
+    def g3(x, fill):
+        return np.where(valid[..., None], x[s_i, k], fill)
+
+    return {
+        "plg": g3(blk.pl, INT_MISSING), "invg": blk.inv_bs,
+        "pllg": g2(blk.pl_len, 0), "nrg": blk.nr_bs,
+        "adg": g3(blk.ad, INT_MISSING), "adlg": g2(blk.ad_len, 0),
+        "gtg": g3(blk.gt, INT_MISSING), "gqg": g2(blk.gq, INT_MISSING),
+        "dpfg": g2(blk.dp, INT_MISSING), "mdpg": g2(blk.min_dp,
+                                                    INT_MISSING),
+        "dpig": g2(blk.dp_info, INT_MISSING),
+        "infog": np.where(info_ok[None], blk.info_f[:, s_i, k], np.nan),
+        "infoig": np.where(info_ok[None], blk.info_i[:, s_i, k],
+                           INT_MISSING),
+        "infofsg": np.where(info_ok[None], blk.info_fs[:, s_i, k],
+                            np.nan),
+        "valid": valid,
+    }
+
+
+#: combine_step_dense's tensor arguments, in order: gather_block_host's
+#: keys
+DENSE_KEYS = ("plg", "invg", "pllg", "nrg", "adg", "adlg", "gtg", "gqg",
+              "dpfg", "mdpg", "dpig", "infog", "infoig", "infofsg", "valid")
+
+
+def combine_step_dense(plg, invg, pllg, nrg, adg, adlg, gtg, gqg, dpfg,
+                       mdpg, dpig, infog, infoig, infofsg, valid,
+                       rec_num_merged, rec_has_nr=None, gt_lens=None, *,
+                       max_merged: int, ploidy: int,
+                       gt_phase: bool = False,
+                       mixed_ploidy: bool = False
+                       ) -> Dict[str, torch.Tensor]:
+    """combine_step on host-pre-gathered dense [B, S, ...] inputs
+    (gather_block_host's, as tensors of one device): only the remap and
+    reduction math runs there.  The output dict of the JAX
+    `combine_step_dense` (combine_step's keys but "live")."""
+    rec_num_merged = rec_num_merged.to(torch.int32)
+    if rec_has_nr is None:
+        rec_has_nr = torch.ones(rec_num_merged.shape, dtype=torch.bool,
+                                device=rec_num_merged.device)
+    pl_out, ad_out, gt_out = _remap_math(
+        plg, invg, pllg, nrg, adg, adlg, gtg, rec_num_merged, rec_has_nr,
+        gt_lens, max_merged=max_merged, ploidy=ploidy, gt_phase=gt_phase,
+        mixed_ploidy=mixed_ploidy)
+    out = _reduce_math(gqg, dpfg, mdpg, dpig, infog, infoig, infofsg, valid)
+    out.update({"pl": pl_out, "ad": ad_out, "gt": gt_out})
+    return out
+
+
+def dense_tensors(g: Dict[str, np.ndarray], device) -> tuple:
+    """gather_block_host's arrays as tensors on `device`, in
+    combine_step_dense's argument order."""
+    return tuple(to_tensor(g[k], device) for k in DENSE_KEYS)
 
 
 def block_to_tensors(blk, device) -> tuple:

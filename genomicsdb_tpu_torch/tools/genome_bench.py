@@ -36,6 +36,23 @@ VID = {
     },
     "contigs": {"1": {"length": 249250621, "tiledb_column_offset": 0}},
 }
+#: INFO fields the other bench cohorts carry, for `write_vid`'s `extra`:
+#: MQ0 (int median), BaseQRankSum (float median), and the allele-specific
+#: 2-D annotations of the import lane, text-serialized per allele ("|")
+#: then per element (","): AS_RAW_MQ element-wise summed, AS_RAW_MQRankSum
+#: a (value, count) histogram
+EXTRA_FIELDS = {
+    "MQ0": {"vcf_field_class": ["INFO"], "type": "int"},
+    "BaseQRankSum": {"vcf_field_class": ["INFO"], "type": "float"},
+    "AS_RAW_MQ": {"vcf_field_class": ["INFO"], "type": "float",
+                  "length": ["R", "VAR"], "vcf_delimiter": ["|", ","],
+                  "vcf_type": "string",
+                  "VCF_field_combine_operation": "element_wise_sum"},
+    "AS_RAW_MQRankSum": {"vcf_field_class": ["INFO"],
+                         "type": ["float", "int"], "length": ["R", "VAR"],
+                         "vcf_delimiter": ["|", ","], "vcf_type": "string",
+                         "VCF_field_combine_operation": "histogram_sum"},
+}
 
 
 def make_cohort(path: str, n_samples: int, n_records: int) -> int:
@@ -83,9 +100,12 @@ def make_cohort(path: str, n_samples: int, n_records: int) -> int:
     return pos
 
 
-def write_vid(path: str) -> None:
+def write_vid(path: str, extra=()) -> None:
+    """Write VID, plus the `EXTRA_FIELDS` named in `extra`, to `path`."""
+    doc = dict(VID, fields=dict(VID["fields"],
+                                **{k: EXTRA_FIELDS[k] for k in extra}))
     with open(path, "w") as f:
-        json.dump(VID, f)
+        json.dump(doc, f)
 
 
 def device_name(device) -> str:

@@ -280,3 +280,109 @@ def test_mesh_on_the_card(cuda, tmp_path, shape):
         assert r["device"].startswith("cuda:")
         assert r["launches"] == r["blocks"] > 0
         assert r["general_path_blocks"] == 0
+
+
+def _outputs_equal(a, b):
+    assert set(a) == set(b)
+    for key in a:
+        x, y = a[key].cpu(), b[key].cpu()
+        assert x.dtype == y.dtype and x.shape == y.shape, key
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), key
+
+
+@pytest.mark.parametrize("S,C,R,m,p,mixed", [(64, 256, 16384, 4, 2, False),
+                                             (16, 64, 4096, 16, 3, True)])
+def test_dense_step_on_the_card(cuda, S, C, R, m, p, mixed):
+    """combine_step_dense on host-gathered inputs: the card's outputs
+    equal the CPU's, and the general step's."""
+    blk = _block(S, C, R, m, p, mixed, seed=S + m)
+    g = TC.gather_block_host(blk, blk.live)
+    flags = dict(max_merged=m, ploidy=p, gt_phase=mixed, mixed_ploidy=mixed)
+
+    def run(dev):
+        gtl = TC.to_tensor(blk.gt_len_bs, dev) if mixed else None
+        return TC.combine_step_dense(
+            *TC.dense_tensors(g, dev), TC.to_tensor(blk.rec_num_merged, dev),
+            TC.to_tensor(blk.rec_has_nr, dev), gtl, **flags)
+
+    on_card = run(cuda)
+    _outputs_equal(on_card, run("cpu"))
+    gen = TC.combine_step(*TC.block_to_tensors(blk, cuda), **flags)
+    _outputs_equal(on_card, {k: v for k, v in gen.items() if k != "live"})
+
+
+@pytest.mark.parametrize("S,C,R,m,p,mixed", [(64, 256, 16384, 4, 2, False),
+                                             (8, 48, 4096, 20, 3, True)])
+def test_remap_rows_on_the_card(cuda, S, C, R, m, p, mixed):
+    """combine_step restricted to every third record (bucket-padded) on
+    the card equals the CPU's, and the unrestricted step's rows."""
+    blk = _block(S, C, R, m, p, mixed, seed=S + p)
+    B = blk.live.shape[0]
+    rows = np.arange(0, B, 3)
+    bucket = 16
+    while bucket < len(rows):
+        bucket *= 2
+    remap_rows = np.zeros(bucket, np.int32)
+    remap_rows[:len(rows)] = rows
+    flags = dict(max_merged=m, ploidy=p, gt_phase=mixed, mixed_ploidy=mixed)
+
+    def run(dev, restrict):
+        return TC.combine_step(*TC.block_to_tensors(blk, dev),
+                               remap_rows=remap_rows if restrict else None,
+                               **flags)
+
+    on_card = run(cuda, True)
+    _outputs_equal(on_card, run("cpu", True))
+    full = run(cuda, False)
+    idx = torch.as_tensor(remap_rows, device=cuda).long()
+    for key in ("pl", "ad", "gt", "gq", "dp_format", "min_dp"):
+        assert torch.equal(on_card[key], full[key][idx]), key
+    for key in ("dp_info_sum", "info_median", "info_fsum", "live"):
+        assert torch.equal(on_card[key].view(torch.int32)
+                           if on_card[key].dtype == torch.float32
+                           else on_card[key],
+                           full[key].view(torch.int32)
+                           if full[key].dtype == torch.float32
+                           else full[key]), key
+
+
+def test_bench_fused_lane_narrow_equals_wide(cuda):
+    """The bench's kernel lane at a small shape: its narrow checksum (on
+    widened values) equals its wide one (the lane raises otherwise) and
+    the general lane's; the kernel launched once per chunk and form."""
+    from genomicsdb_tpu_torch import bench as TB
+    shape = dict(num_samples=64, cells_per_sample=256, region_len=16384,
+                 chunk=1024, reps=1)
+    before = FC.fused_gather_remap.narrow_launches
+    fused = TB.bench_device_fused(cuda, **shape)
+    assert FC.fused_gather_remap.narrow_launches > before
+    assert fused["narrow"]["checksum"] == fused["checksum"]
+    assert TB.bench_device(cuda, **shape)["checksum"] == fused["checksum"]
+
+
+def test_dense_block_query_on_the_card(cuda, tmp_path, monkeypatch):
+    """GENOMICSDB_TPU_DENSE=1 on the card: every block takes the dense
+    step, none the kernel, and the text equals the CPU's without it."""
+    from genomicsdb_tpu_torch.query import block_writer as BW
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
+    c = write_cohort(str(tmp_path), 40, 300, seed=2)
+    vcf2gdb.main([c.loader])
+
+    def run(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gdb_query.main(["-j", c.query, "--produce-Broad-GVCF",
+                            "--device", device])
+        return buf.getvalue()
+
+    want = run("cpu")
+    monkeypatch.setenv("GENOMICSDB_TPU_DENSE", "1")
+    BW.render_block_vcf_pipelined.dense_blocks = 0
+    launches = FC.fused_gather_remap.launches
+    got = run("cuda")
+    assert BW.render_block_vcf_pipelined.dense_blocks > 0
+    assert FC.fused_gather_remap.launches == launches
+    assert got and got == want

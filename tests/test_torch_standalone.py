@@ -173,6 +173,47 @@ def test_stream_server_help_runs_with_jax_blocked():
     assert "--device" in res.stdout and "--platform" not in res.stdout
 
 
+BENCH_MODULES = ("genomicsdb_tpu_torch.bench",
+                 "genomicsdb_tpu_torch.graft_entry",
+                 "genomicsdb_tpu_torch.tools.deletion_bench",
+                 "genomicsdb_tpu_torch.tools.wide_cohort_bench",
+                 "genomicsdb_tpu_torch.tools.ooc_bench")
+
+
+@pytest.fixture(scope="module")
+def bench_help():
+    """{module: its `--help` text}, every module run as `python -m` would
+    run it, in one interpreter where jax and genomicsdb_tpu are
+    blocked."""
+    code = (BLOCK + "import runpy\n"
+            f"for m in {BENCH_MODULES!r}:\n"
+            "    sys.argv = [m, '--help']\n"
+            "    try:\n"
+            "        runpy.run_module(m, run_name='__main__')\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0, (m, e.code)\n"
+            "    sys.stdout.write('\\f')\n"
+            "assert not [m for m in sys.modules if m.startswith(("
+            "'jax.', 'genomicsdb_tpu.'))]\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    texts = res.stdout.split("\f")[:-1]
+    assert len(texts) == len(BENCH_MODULES)
+    return dict(zip(BENCH_MODULES, texts))
+
+
+@pytest.mark.parametrize("module", BENCH_MODULES)
+def test_bench_modules_help_with_jax_blocked(bench_help, module):
+    """The port's bench, graft entry and the three bench tools are in
+    the AST scan and print their `--help` where jax and genomicsdb_tpu
+    cannot load; every one takes --device, none --platform."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert module.replace(".", os.sep) + ".py" in scanned
+    text = bench_help[module]
+    assert "--device" in text and "--platform" not in text
+
+
 PARALLEL_MODULES = ("genomicsdb_tpu_torch.parallel.comm",
                     "genomicsdb_tpu_torch.parallel.sharded",
                     "genomicsdb_tpu_torch.parallel.multihost",
