@@ -30,19 +30,20 @@ Every phase passes or the script exits non-zero:
      and queried with the port's `gdb_query --produce-Broad-GVCF`
      (block engine) on `--device cuda` with the fetch pack on (the
      card's default: narrow kernel, packed variant-row fetch; cold, then
-     warm) and off (warm).  The texts must be byte-identical; with the
-     pack on every block must have launched the narrow kernel and the
-     variant-row split must have engaged, with it off every block the
-     wide kernel; over the cohort's first records the block output on
-     cuda must equal it on `--device cpu` and the sequential engine's.
-     The bytes each fetch mode copied to the host are printed.
+     warm), off (warm), off and on again, and on `--device cpu`.  The
+     texts must be byte-identical; with the pack on every block must
+     have launched the narrow kernel and the variant-row split must have
+     engaged, with it off every block the wide kernel; the block output
+     over the cohort's first records must equal the sequential
+     engine's.  The bytes each fetch mode copied to the host are
+     printed.
   4. The main path's kernel launches: one more warm query records the
      shape (B, S, C, G_in, A_in, M, G_out, gt_w, F, Fi, Fs, form), bytes
      and byte bound of every launch; the largest launch's inputs (the
      store-wide slabs) are held against the twin in all three forms and
      timed.
   5. Serving: the port's `QueryStreamServer` in this process on cuda:0
-     answers 12 seeded 10 kb intervals of the same cohort in three
+     answers 24 seeded 10 kb intervals of the same cohort in three
      lanes, each behind warm-up queries: a persistent client with the
      serving index off (the engine lane: every block must launch the
      narrow kernel; the host-to-device bytes of its first and second
@@ -51,8 +52,7 @@ Every phase passes or the script exits non-zero:
      combine) and one-shot connections.  Every response must be
      byte-identical across lanes, the engine after the build, a
      cpu-device server (3 intervals) and four concurrent persistent
-     clients of 3 queries each (on a cold server with the index off,
-     then served).  Prints
+     clients (on a cold server with the index off, then served).  Prints
      p50/p90 per lane, the mean response bytes, the engine lane's
      launches (padded against real records) and holds its most frequent
      launch against the twin in all three forms.  Then `gdb_query -p
@@ -77,13 +77,13 @@ Every phase passes or the script exits non-zero:
      checksum must equal the wide one), `device_dense` (its checksum
      must equal the general combine_step's on the same 8192-record
      chunk), `cpp_sequential_baseline`, `cohort100_end_to_end` and
-     `import`; `GENOMICSDB_TPU_DENSE=1 gdb_query --device cuda` must
-     give phase 3's text without a kernel launch; a 17-allele block (the
-     general path) restricted by `remap_rows` must equal the
-     unrestricted step's rows; `tools.deletion_bench` (100 x 1,000) and
-     `tools.wide_cohort_bench --samples 1000 --records 2000 --windows 2`
-     in this process and `tools.ooc_bench --target-bytes 2e8` in its own
-     (more than one window), each with its own checks; the graft entry's
+     `import`; each fused lane's pass split into the kernel's time and
+     the rest; a 17-allele block (the general path) restricted by
+     `remap_rows` must equal the unrestricted step's rows;
+     `tools.deletion_bench` (100 x 500) and `tools.wide_cohort_bench
+     --samples 1000 --records 1000 --windows 2` in this process and
+     `tools.ooc_bench --target-bytes 1e8` in its own (more than one
+     window), each with its own checks; the graft entry's
      step on cuda must equal it on cpu, and `dryrun_multichip(4)` (four
      ranks on cuda:0, gloo) must pass.  The lanes' and tools' kernel
      launches join the main path's in the kernel JSON.
@@ -115,7 +115,7 @@ KERNEL_SOURCE = "genomicsdb_tpu_torch/csrc/fused_gather_remap.cu"
 # narrow form, and _make_kernel (the wide, non-mixed function)
 PALLAS = "genomicsdb_tpu/ops/pallas_combine.py"
 E2E_SAMPLES, E2E_RECORDS = 1000, 4000
-SERVING_QUERIES, SERVING_BP = 12, 10_000
+SERVING_QUERIES, SERVING_BP = 24, 10_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # the kernel's forms: (narrow, narrow_scalars)
 FORMS = {"wide": (False, False), "narrow": (True, False),
@@ -440,15 +440,22 @@ def phase_end_to_end(torch, card):
     print(f"import (vcf2gdb): {time.perf_counter() - t0:.2f} s")
     base = ["-j", c.query, "--produce-Broad-GVCF", "--engine", "block"]
     cuda = base + ["--device", "cuda"]
-    # the card's default (pack on) cold, then warm on / off
+    # the card's default (pack on) cold, then warm on / off / off / on
     cold, t_cold, _ = _counted_query(torch, cuda)
-    on1, t_on, c_on = _counted_query(torch, cuda)
-    off1, t_off, c_off = _counted_query(torch, cuda, pack=False)
+    on1, t_on1, c_on = _counted_query(torch, cuda)
+    off1, t_off1, c_off = _counted_query(torch, cuda, pack=False)
+    off2, t_off2, _ = _counted_query(torch, cuda, pack=False)
+    on2, t_on2, _ = _counted_query(torch, cuda)
+    t0 = time.perf_counter()
+    on_cpu = _query(base + ["--device", "cpu"])
+    t_cpu = time.perf_counter() - t0
     records = len(on1.splitlines())
     positions = c.region + 1
+    t_on, t_off = (t_on1 + t_on2) / 2, (t_off1 + t_off2) / 2
     print(f"block query: {records} records; cuda pack on: cold "
-          f"{t_cold:.3f} s, warm {t_on:.3f} s; cuda pack off: warm "
-          f"{t_off:.3f} s [{card}]")
+          f"{t_cold:.3f} s, warm {t_on1:.3f} / {t_on2:.3f} s; cuda pack "
+          f"off: warm {t_off1:.3f} / {t_off2:.3f} s; cpu device "
+          f"{t_cpu:.3f} s [{card}]")
     print(f"warm pack on: {positions / t_on:.1f} positions/s, "
           f"{records / t_on:.1f} records/s; pack off: "
           f"{positions / t_off:.1f} positions/s, {records / t_off:.1f} "
@@ -463,8 +470,9 @@ def phase_end_to_end(torch, card):
     print(f"pack off: {c_off}")
     if records == 0:
         raise AssertionError("the block query produced no records")
-    if not cold == on1 == off1:
-        raise AssertionError("pack on / pack off texts differ")
+    if not (cold == on1 == off1 == off2 == on2 == on_cpu):
+        raise AssertionError("pack on / pack off / --device cpu texts "
+                             "differ")
     if not (c_on["narrow_launches"] == c_on["launches"] == c_on["blocks"]
             > 0 and c_on["general_path_blocks"] == 0
             and c_on["wide_blocks_when_packing"] == 0):
@@ -481,15 +489,12 @@ def phase_end_to_end(torch, card):
     blk_head = _query(head + ["--engine", "block", "--device", "cuda"])
     seq_head = _query(head + ["--engine", "sequential", "--device",
                               "cuda"])
-    t0 = time.perf_counter()
-    cpu_head = _query(head + ["--engine", "block", "--device", "cpu"])
-    t_cpu = time.perf_counter() - t0
     n_head = len(seq_head.splitlines())
-    if not blk_head == seq_head == cpu_head or n_head == 0:
-        raise AssertionError("over the head interval, the block engine on "
-                             "cuda, on cpu and the sequential engine differ")
-    print(f"block (cuda) == block (--device cpu, {t_cpu:.3f} s) == "
-          f"sequential over columns {c.head_interval} ({n_head} records)")
+    if blk_head != seq_head or n_head == 0:
+        raise AssertionError("block engine differs from the sequential "
+                             "engine over the head interval")
+    print(f"block == sequential over columns {c.head_interval} "
+          f"({n_head} records)")
     return c_on, c_off, c, on1
 
 
@@ -567,7 +572,7 @@ def _pct_ms(lats, q):
     return 1e3 * lats[min(len(lats) - 1, int(q * len(lats)))]
 
 
-def _concurrent(SS, addr, docs, want, n_clients=4, per_client=3):
+def _concurrent(SS, addr, docs, want, n_clients=4, per_client=6):
     """n_clients persistent clients in threads, each cycling through the
     documents; returns the mismatches and errors."""
     import threading
@@ -784,7 +789,7 @@ def phase_serving(torch, np, c, card, main_text):
         if errs or errs2:
             raise AssertionError("serving, concurrent clients: "
                                  + "; ".join(errs + errs2))
-        print(f"serving: 4 concurrent persistent clients x 3 queries each "
+        print(f"serving: 4 concurrent persistent clients x 6 queries each "
               f"== single-client bytes: engine on a cold server {dt:.3f} s, "
               f"served {dt2:.3f} s [{card}]")
     finally:
@@ -1077,17 +1082,46 @@ def _printed_json(fn) -> str:
     return buf.getvalue().strip().splitlines()[-1]
 
 
-def phase_remaining(torch, np, c, card, main_text):
-    """The bench lanes in this process at the JAX bench's shapes, the
-    dense branch and the remap_rows restriction, the three bench tools
-    and the graft entry, all on cuda:0.  Returns the (wide, narrow)
-    kernel launches of the lanes and in-process tools."""
+def _fused_lane_split(torch, TB, dev, shape, card):
+    """The fused lane's pass split into the kernel and the rest: per
+    form, the kernel's time summed over the pass's chunks (each chunk's
+    launch timed alone, `_kernel_ms`) against one pass of the lane's
+    chunk loop (`bench._fused_run`: the wrapper, `_fused_post`'s
+    reductions and the checksum), both CUDA events.  Not counted."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    from genomicsdb_tpu_torch.ops.cell_block import synthesize_cohort
+    blk = synthesize_cohort(*shape, seed=0)
+    slabs, (live, inv, nr, recnm, recnr) = TB._cohort_tensors(blk, dev)
+    live = live.to(torch.int32)
+    chunks = TB._chunks(live.shape[0], TB.CHUNK)
+    parts = []
+    for narrow in (False, True):
+        kw = dict(max_merged=4, ploidy=2, gt_phase=False, mixed=False,
+                  narrow=narrow,
+                  narrow_scalars=narrow and FC._narrow_scalars_ok(blk))
+        kern = sum(_kernel_ms(torch, (*slabs, live[lo:hi], inv[lo:hi],
+                                      nr[lo:hi], recnm[lo:hi],
+                                      recnr[lo:hi], None), kw, 5)
+                   for lo, hi in chunks)
+        whole = _time_ms(torch, TB._fused_run(dev, blk, TB.CHUNK, narrow),
+                         3)
+        parts.append(f"{'narrow' if narrow else 'wide'} kernel "
+                     f"{kern:.4f} ms of a {whole:.4f} ms pass "
+                     f"({100 * kern / whole:.1f}%)")
+    print(f"fused lane {'x'.join(map(str, shape))}, {len(chunks)} chunks "
+          f"of {TB.CHUNK} records: " + "; ".join(parts) + f" [{card}]")
+
+
+def phase_remaining(torch, np, card):
+    """The bench lanes in this process at the JAX bench's shapes (with
+    the fused lanes' kernel share), the remap_rows restriction, the
+    three bench tools and the graft entry, all on cuda:0.  Returns the
+    (wide, narrow) kernel launches of the lanes and in-process tools."""
     from genomicsdb_tpu_torch import bench as TB
     from genomicsdb_tpu_torch import graft_entry as GE
     from genomicsdb_tpu_torch.ops import combine_step as TC
     from genomicsdb_tpu_torch.ops import fused_combine as FC
     from genomicsdb_tpu_torch.ops.cell_block import synthesize_cohort
-    from genomicsdb_tpu_torch.query import block_writer as BW
     from genomicsdb_tpu_torch.tools import deletion_bench, wide_cohort_bench
     from genomicsdb_tpu_torch.tools.gdb_query import child_env
     dev = torch.device("cuda:0")
@@ -1128,25 +1162,8 @@ def phase_remaining(torch, np, c, card, main_text):
     print(f"bench lanes: narrow == wide checksums at both shapes; "
           f"device_dense == combine_step on the first {n} records ({chk})")
     del t, out, blk
-
-    # the dense branch through gdb_query on phase 3's cohort
-    os.environ["GENOMICSDB_TPU_DENSE"] = "1"
-    try:
-        BW.render_block_vcf_pipelined.dense_blocks = 0
-        t0 = time.perf_counter()
-        text, w, nn = _counted(torch, lambda: _query(
-            ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]))
-        dense_s = time.perf_counter() - t0
-        dense_blocks = BW.render_block_vcf_pipelined.dense_blocks
-    finally:
-        del os.environ["GENOMICSDB_TPU_DENSE"]
-    if text != main_text or not dense_blocks or w or nn:
-        raise AssertionError(f"GENOMICSDB_TPU_DENSE=1: {dense_blocks} dense "
-                             f"blocks, {w + nn} kernel launches, text equal "
-                             f"to phase 3's: {text == main_text}")
-    print(f"GENOMICSDB_TPU_DENSE=1 gdb_query --device cuda: {dense_blocks} "
-          f"dense blocks, no kernel launch, phase 3's text byte for byte, "
-          f"{dense_s:.3f} s [{card}]")
+    for shape in ((128, 2048, 262144), (1024, 256, 32768)):
+        _fused_lane_split(torch, TB, dev, shape, card)
 
     # one general-path block (17 merged alleles), restricted and not
     gblk = _synthetic_block(np, "general m17", 256, 256, 16384, 17, 2,
@@ -1154,7 +1171,10 @@ def phase_remaining(torch, np, c, card, main_text):
     if FC.kernel_takes(gblk, 17, 2, False):
         raise AssertionError("the 17-allele block passed the kernel's gates")
     B = gblk.live.shape[0]
-    rows = BW._bucket_rows(np.arange(0, B, 3), 16)
+    # every third record, padded with row 0 to a power-of-two bucket
+    var = np.arange(0, B, 3)
+    rows = np.zeros(1 << max(4, (len(var) - 1).bit_length()), np.int32)
+    rows[:len(var)] = var
     t = TC.block_to_tensors(gblk, dev)
     full = TC.combine_step(*t, max_merged=17, ploidy=2)
     restricted = TC.combine_step(*t, remap_rows=rows, max_merged=17,
@@ -1169,11 +1189,13 @@ def phase_remaining(torch, np, c, card, main_text):
           f"bit for bit (max abs err {err})")
     del t, full, restricted
 
-    # the three bench tools
+    # the three bench tools, at cut sizes (records, not samples) to keep
+    # the call inside its time limit
     tools = {
-        "deletion_bench": lambda: deletion_bench.main(["--device", "cuda"]),
+        "deletion_bench": lambda: deletion_bench.main(
+            ["--samples", "100", "--records", "500", "--device", "cuda"]),
         "wide_cohort_bench": lambda: wide_cohort_bench.main(
-            ["--samples", "1000", "--records", "2000", "--windows", "2",
+            ["--samples", "1000", "--records", "1000", "--windows", "2",
              "--device", "cuda"]),
     }
     for name, fn in tools.items():
@@ -1185,7 +1207,7 @@ def phase_remaining(torch, np, c, card, main_text):
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m",
                         "genomicsdb_tpu_torch.tools.ooc_bench",
-                        "--target-bytes", "2e8", "--device", "cuda"],
+                        "--target-bytes", "1e8", "--device", "cuda"],
                        capture_output=True, text=True, timeout=600,
                        env=child_env())
     if r.returncode != 0:
@@ -1257,8 +1279,7 @@ def main() -> int:
     mesh_launches = phase_distribution(torch, np, cohort, card, main_text,
                                        largest)
     lap("6")
-    lane_wide, lane_narrow = phase_remaining(torch, np, cohort, card,
-                                             main_text)
+    lane_wide, lane_narrow = phase_remaining(torch, np, card)
     lap("7")
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))

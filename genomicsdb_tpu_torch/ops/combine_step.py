@@ -21,12 +21,13 @@ package:
                         and its remap math is the plain twin of that
                         kernel.  `med_rows` restricts the INFO
                         reductions; `remap_rows` restricts the PL/AD/GT
-                        gathers and remaps to the variant rows (the
-                        JAX CPU-device configuration; the host rebuilds
-                        the ref-block rows)
+                        gathers and remaps to the given rows (the JAX
+                        writer's CPU-device restriction; the port's
+                        writer does not take it)
   * combine_step_dense  the same math on inputs the host gathered
                         (`gather_block_host`): the JAX package's
-                        PCIe-host configuration (`GENOMICSDB_TPU_DENSE=1`)
+                        PCIe-host configuration; the bench's
+                        `device_dense` lane, not the port's writer
   * parallel.sharded    the mesh, `group=` gathering the sample axis
 All three are plain torch on either device (their JAX counterparts are
 XLA, not Pallas).

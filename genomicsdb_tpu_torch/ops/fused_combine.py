@@ -575,20 +575,14 @@ def combine_step_fused(blk, device, *, max_merged: int, ploidy: int,
 
 def combine_block(blk, device, *, max_merged: int, ploidy: int,
                   gt_phase: bool = False, mixed_ploidy: bool = False,
-                  med_rows=None, narrow_out: bool = False, remap_rows=None
+                  med_rows=None, narrow_out: bool = False
                   ) -> Dict[str, torch.Tensor]:
     """The block engine's device combine: combine_step_fused where its
-    gates allow, else the general combine_step on the same device, with
-    its PL/AD/GT remaps restricted to `remap_rows` when given (only for
-    a block past the kernel's gates: `kernel_takes` is False).
+    gates allow, else the general combine_step on the same device.
     Counts every block in `combine_block.blocks`, the general-path ones
     in `combine_block.general_path_blocks`, and the kernel blocks that
     asked for the narrow form but took the wide one (values past the
     int16 range) in `combine_block.wide_blocks_when_packing`."""
-    if remap_rows is not None and kernel_takes(blk, max_merged, ploidy,
-                                               mixed_ploidy):
-        raise ValueError("remap_rows restricts the general step; the kernel "
-                         "takes this block")
     combine_block.blocks += 1
     out = combine_step_fused(blk, device, max_merged=max_merged,
                              ploidy=ploidy, gt_phase=gt_phase,
@@ -597,9 +591,9 @@ def combine_block(blk, device, *, max_merged: int, ploidy: int,
     if out is None:
         combine_block.general_path_blocks += 1
         out = combine_step(*block_to_tensors(blk, device),
-                           med_rows=med_rows, remap_rows=remap_rows,
-                           max_merged=max_merged, ploidy=ploidy,
-                           gt_phase=gt_phase, mixed_ploidy=mixed_ploidy)
+                           med_rows=med_rows, max_merged=max_merged,
+                           ploidy=ploidy, gt_phase=gt_phase,
+                           mixed_ploidy=mixed_ploidy)
     elif narrow_out and out["pl"].dtype != torch.int16:
         combine_block.wide_blocks_when_packing += 1
     return out

@@ -24,35 +24,29 @@ every output is fetched whole with `.cpu().numpy()`.  The mesh branch
 (`mesh=`, `gdb_query --mesh`) combines each rank's shard of the block
 (`parallel.sharded`: the CUDA kernel per shard in its wide form, the
 cross-sample reductions over the mesh's row group) and the first rank
-gathers, trims and renders, as the JAX mesh branch does.  With
-`GENOMICSDB_TPU_DENSE=1` (the JAX switch, read by its name) the block
-takes the JAX dense branch instead of the kernel: the live-cell gather
-on the host, `combine_step_dense` on the device, then the same fetch.
-A block past the kernel's gates on the CPU device takes the JAX
-CPU-device restriction: the general step gathers and remaps PL/AD/GT
-on the variant rows only and the host rebuilds the ref-block rows
-(`GENOMICSDB_TPU_VARROWS=0` turns it off, as in the JAX writer); on the
-card such blocks keep the fetch's variant-row split.  The host render
-below the device section is unchanged.
+gathers, trims and renders, as the JAX mesh branch does.  Two JAX
+writer branches are left out on purpose: the dense-gather branch
+(`GENOMICSDB_TPU_DENSE=1`, for a TPU behind a PCIe host; on an H100 the
+kernel path is the faster one) and the CPU-device `remap_rows`
+restriction (a CPU speed-up that no measurement here backs).  Their
+device functions, `combine_step_dense` and `combine_step(remap_rows=)`,
+are in `ops/combine_step`.  The host render below the device section
+is unchanged.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..core import formats
 from ..core import known_fields as kf
 from ..core.config import QueryConfig
 from ..core.vid import VidMapper
-from ..ops.combine_step import (combine_step_dense, dense_tensors,
-                                fetch_outputs, fetch_outputs_split,
-                                gather_block_host, host_identity_outputs,
-                                pack_outputs, to_tensor)
-from ..ops.fused_combine import combine_block, kernel_takes
+from ..ops.combine_step import (fetch_outputs, fetch_outputs_split,
+                                host_identity_outputs, pack_outputs)
+from ..ops.fused_combine import combine_block
 from ..ops.store_block import store_to_block
 from ..runtime import native_loader
 from ..store.columnar import ColumnarStore
@@ -97,50 +91,6 @@ def _mesh_device_section(mesh, blk, max_merged, ploidy, gt_phase,
     return gather_outputs(mesh, out, *live.shape), live
 
 
-def _bucket_rows(rows: np.ndarray, first: int) -> np.ndarray:
-    """`rows` padded (repeating row 0) to the first power-of-two bucket
-    of at least `first` that holds them, as the JAX writer pads its
-    restrictions."""
-    bucket = first
-    while bucket < len(rows):
-        bucket *= 2
-    out = np.zeros(bucket, np.int32)
-    out[:len(rows)] = rows
-    return out
-
-
-def _split_rows(meta):
-    """(variant rows, ref-block rows) of a block, or None when
-    ref-block-only records are fewer than a quarter of it (the JAX
-    writer's gate for fetching, or remapping, the variant rows alone)."""
-    ref_mask = meta.is_ref_block_only
-    ref_rows = np.nonzero(ref_mask)[0]
-    if len(ref_rows) < max(len(ref_mask) // 4, 1):
-        return None
-    return np.nonzero(~ref_mask)[0], ref_rows
-
-
-def _dense_combine(blk, device, max_merged, ploidy, gt_phase, mixed_ploidy):
-    """The JAX writer's `GENOMICSDB_TPU_DENSE=1` branch (its PCIe-host
-    configuration): the live-cell gather on the host
-    (`gather_block_host`), only the dense remap and reduction math on
-    `device` (`combine_step_dense`).  No med_rows restriction, as
-    there.  The outputs carry the block's `live` as a host tensor (never
-    fetched)."""
-    g = gather_block_host(blk, blk.live)
-    has_nr = blk.rec_has_nr if blk.rec_has_nr is not None \
-        else np.ones(len(blk.rec_num_merged), dtype=bool)
-    out = combine_step_dense(
-        *dense_tensors(g, device), to_tensor(blk.rec_num_merged, device),
-        to_tensor(has_nr, device),
-        to_tensor(blk.gt_len_bs, device) if blk.gt_len_bs is not None
-        else None, max_merged=max_merged, ploidy=ploidy, gt_phase=gt_phase,
-        mixed_ploidy=mixed_ploidy)
-    out["live"] = torch.from_numpy(np.asarray(blk.live))
-    render_block_vcf_pipelined.dense_blocks += 1
-    return out
-
-
 def _device_section(blk, meta, device, pack, max_merged, ploidy, gt_phase,
                     mixed_ploidy):
     """The single-device combine and fetch (a generator: it yields once,
@@ -148,46 +98,36 @@ def _device_section(blk, meta, device, pack, max_merged, ploidy, gt_phase,
     the padded med_rows the INFO reductions were restricted to, or
     None)."""
     pack_on = device.type == "cuda" if pack is None else bool(pack)
-    med_rows_p = remap_split = None
-    if os.environ.get("GENOMICSDB_TPU_DENSE") == "1":
-        out = _dense_combine(blk, device, max_merged, ploidy, gt_phase,
-                             mixed_ploidy)
-    else:
-        # INFO median/sum restriction: only rows with any valid input
-        # (meta.med_rows) enter the cross-sample sorts
-        mr = meta.med_rows
-        B0 = blk.live.shape[0]
-        if mr is not None and B0 and len(mr) < (3 * B0) // 4:
-            med_rows_p = _bucket_rows(mr, 8)
-        # the JAX CPU-device configuration of the general step: PL/AD/GT
-        # gathered and remapped on the variant rows only (ref-block rows
-        # are identity passthroughs the host rebuilds below); on the
-        # card the general path keeps the fetch's variant-row split,
-        # the JAX TPU branch
-        remap_rows_p = None
-        if (device.type == "cpu"
-                and not kernel_takes(blk, max_merged, ploidy, mixed_ploidy)
-                and os.environ.get("GENOMICSDB_TPU_VARROWS", "1") != "0"):
-            remap_split = _split_rows(meta)
-            if remap_split is not None:
-                remap_rows_p = _bucket_rows(remap_split[0], 16)
-        # with the pack on, the kernel writes PL/AD/GT (and GQ/DP/MIN_DP)
-        # already narrowed to int16, so no device re-narrow pass follows
-        out = combine_block(blk, device, max_merged=max_merged,
-                            ploidy=ploidy, gt_phase=gt_phase,
-                            mixed_ploidy=mixed_ploidy, med_rows=med_rows_p,
-                            narrow_out=pack_on, remap_rows=remap_rows_p)
+    # INFO median/sum restriction: only rows with any valid input
+    # (meta.med_rows) enter the cross-sample sorts; bucket-padded
+    # (repeating row 0) as the JAX writer does
+    med_rows_p = None
+    mr = meta.med_rows
+    B0 = blk.live.shape[0]
+    if mr is not None and B0 and len(mr) < (3 * B0) // 4:
+        bucket = 8
+        while bucket < len(mr):
+            bucket *= 2
+        med_rows_p = np.zeros(bucket, np.int32)
+        med_rows_p[:len(mr)] = mr
+    # with the pack on, the kernel writes PL/AD/GT (and GQ/DP/MIN_DP)
+    # already narrowed to int16, so no device re-narrow pass follows
+    out = combine_block(blk, device, max_merged=max_merged, ploidy=ploidy,
+                        gt_phase=gt_phase, mixed_ploidy=mixed_ploidy,
+                        med_rows=med_rows_p, narrow_out=pack_on)
     # the fetch pack: narrowed outputs in one device blob, holding only
     # the variant rows when ref-block-only records are at least a
     # quarter of the block (the host rebuilds those from block data it
     # holds); pack_outputs starts the blob's copy to the host now, so it
-    # overlaps the previous chunk's render.  A row-restricted combine's
-    # outputs already hold the variant rows alone: packed whole.
+    # overlaps the previous chunk's render
     packed = split = None
     if pack_on:
-        split = None if remap_split is not None else _split_rows(meta)
-        if split is not None:
-            packed = pack_outputs(out, rows=split[0])
+        ref_mask = meta.is_ref_block_only
+        var_rows = np.nonzero(~ref_mask)[0]
+        ref_rows = np.nonzero(ref_mask)[0]
+        if len(ref_rows) >= max(len(ref_mask) // 4, 1):
+            packed = pack_outputs(out, rows=var_rows)
+            split = (var_rows, ref_rows)
             render_block_vcf_pipelined.split_blocks += 1
         else:
             packed = pack_outputs(out)
@@ -224,49 +164,7 @@ def _device_section(blk, meta, device, pack, max_merged, ploidy, gt_phase,
         dev = fetch_outputs({k: v for k, v in out.items() if k != "live"},
                             packed)
     dev["live"] = live
-    if remap_split is not None:
-        dev.update(_scatter_remap_rows(blk, dev, live, *remap_split,
-                                       gt_phase, mixed_ploidy))
     return dev, live, med_rows_p
-
-
-def _scatter_remap_rows(blk, dev, live, var_rows, ref_rows, gt_phase,
-                        mixed_ploidy):
-    """Full-size PL/AD/GT/GQ/DP_FORMAT/MIN_DP from a row-restricted
-    combine (its outputs hold the variant rows first, then bucket
-    padding): the variant rows scattered back, the emitted ref-block
-    rows rebuilt on the host (native `identity_outputs`, else
-    `host_identity_outputs`).  The JAX writer's remap_restrict
-    assembly."""
-    B, S = live.shape
-    n_var = len(var_rows)
-    widths = (dev["pl"].shape[-1], dev["ad"].shape[-1], dev["gt"].shape[-1])
-    full = {
-        "pl": np.empty((B, S, widths[0]), np.int32),
-        "ad": np.empty((B, S, widths[1]), np.int32),
-        "gt": np.empty((B, S, widths[2]), np.int32),
-        # 2-D presence columns: rows outside the scatter (no live cell,
-        # bucket padding) must read MISSING
-        "gq": np.full((B, S), INT_MISSING, np.int32),
-        "dp_format": np.full((B, S), INT_MISSING, np.int32),
-        "min_dp": np.full((B, S), INT_MISSING, np.int32),
-    }
-    for k in full:
-        full[k][var_rows] = dev[k][:n_var]
-    ref_emitted = ref_rows[(live[ref_rows] >= 0).any(axis=1)]
-    if len(ref_emitted):
-        gtl_r = np.asarray(blk.gt_len_bs)[ref_emitted] \
-            if mixed_ploidy else None
-        if native_loader.identity_outputs(
-                live[ref_emitted], blk.pl, blk.pl_len, blk.ad, blk.ad_len,
-                blk.gt, blk.gq, blk.dp, blk.min_dp, gtl_r, widths,
-                blk.ploidy, gt_phase, mixed_ploidy, out=full,
-                dest_rows=ref_emitted) is None:
-            ident = host_identity_outputs(blk, ref_emitted, widths,
-                                          gt_phase, mixed_ploidy)
-            for k in full:
-                full[k][ref_emitted] = ident[k]
-    return full
 
 
 def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
@@ -293,9 +191,7 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
     `pack` (None: on for a CUDA device, off otherwise) selects the
     narrow kernel and the packed, variant-row fetch.  Counts the blocks
     whose fetch took the variant-row split in
-    `render_block_vcf_pipelined.split_blocks`, and those combined by the
-    dense step (`GENOMICSDB_TPU_DENSE=1`) in
-    `render_block_vcf_pipelined.dense_blocks`.
+    `render_block_vcf_pipelined.split_blocks`.
 
     `mesh` (a `parallel.sharded.Mesh`): the combine runs sharded over
     the mesh's rank processes, each on its own device (`device` is not
@@ -650,7 +546,6 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
 
 
 render_block_vcf_pipelined.split_blocks = 0
-render_block_vcf_pipelined.dense_blocks = 0
 
 
 def _strs_to_col(strings: List, dot_is_empty: bool = False):

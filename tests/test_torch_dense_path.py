@@ -1,8 +1,9 @@
 """The port's dense path against genomicsdb_tpu's: the host live-cell
 gather (`gather_block_host`), the dense step on pre-gathered inputs
-(`combine_step_dense`), and the block writer's `GENOMICSDB_TPU_DENSE=1`
-branch end to end.  Each package builds its own block from the same
-seed, or loads the store from the same files; outputs are compared
+(`combine_step_dense`), and, on a store's block, the JAX writer's
+`GENOMICSDB_TPU_DENSE=1` branch (the port's writer has none: its text
+must equal that branch's).  Each package builds its own block from the
+same seed, or loads the store from the same files; outputs are compared
 exactly (integers equal, floats as int32 bits)."""
 
 import contextlib
@@ -15,8 +16,9 @@ import torch
 from genomicsdb_tpu.ops import combine_step as JC
 from genomicsdb_tpu.tools import gdb_query as jax_gdb_query
 from genomicsdb_tpu_torch.ops import combine_step as TC
-from genomicsdb_tpu_torch.ops import fused_combine as FC
+from genomicsdb_tpu_torch.ops.store_block import store_to_block
 from genomicsdb_tpu_torch.query import block_writer as BW
+from genomicsdb_tpu_torch.query.driver import make_query_config
 from genomicsdb_tpu_torch.testing import write_cohort
 from genomicsdb_tpu_torch.tools import gdb_query as torch_gdb_query
 from genomicsdb_tpu_torch.tools import vcf2gdb
@@ -92,22 +94,33 @@ def cohort(tmp_path_factory):
 
 @pytest.mark.parametrize("pack", [False, True])
 def test_dense_writer_text(cohort, monkeypatch, pack):
-    """`GENOMICSDB_TPU_DENSE=1`: every block takes the dense step (no
-    kernel twin), and the text equals the port's without it and the JAX
-    block engine's with it; with the pack on, through the packed
-    variant-row fetch."""
+    """The dense step on the store's whole block equals the general step
+    (at the writer's flags), and the port's writer text (pack off and
+    on) equals the JAX block engine's with `GENOMICSDB_TPU_DENSE=1`."""
     argv = ["-j", cohort.query, "--produce-Broad-GVCF"]
+    args = torch_gdb_query._build_parser().parse_args(argv)
+    _, qp, vid, store = torch_gdb_query.load_context(args, 0)
+    blk, meta = store_to_block(store, make_query_config(qp, vid),
+                               interval=(0, cohort.region), max_merged=4,
+                               return_meta=True)
+    flags = dict(max_merged=blk.inv_bs.shape[2], ploidy=blk.ploidy,
+                 gt_phase=meta.plan.gt_phase, mixed_ploidy=False)
+    has_nr = blk.rec_has_nr if blk.rec_has_nr is not None \
+        else np.ones(len(blk.rec_num_merged), dtype=bool)
+    got = TC.combine_step_dense(
+        *TC.dense_tensors(TC.gather_block_host(blk, blk.live), "cpu"),
+        torch.from_numpy(blk.rec_num_merged), torch.from_numpy(has_nr),
+        None, **flags)
+    gen = TC.combine_step(*TC.block_to_tensors(blk, "cpu"), **flags)
+    assert got["pl"].shape[0] == blk.live.shape[0] > 50
+    compare_outputs({k: v.numpy() for k, v in gen.items() if k != "live"},
+                    got)
+
     monkeypatch.setenv("GENOMICSDB_TPU_SERVING_INDEX", "0")
-    plain = _run(torch_gdb_query.main, argv + ["--device", "cpu"])
-    monkeypatch.setenv("GENOMICSDB_TPU_DENSE", "1")
-    BW.render_block_vcf_pipelined.dense_blocks = 0
     BW.render_block_vcf_pipelined.split_blocks = 0
-    blocks = FC.combine_block.blocks
-    dense = _run(torch_gdb_query.main, argv + ["--device", "cpu"],
-                 pack=pack)
-    assert BW.render_block_vcf_pipelined.dense_blocks > 0
-    assert FC.combine_block.blocks == blocks
+    text = _run(torch_gdb_query.main, argv + ["--device", "cpu"], pack=pack)
     assert (BW.render_block_vcf_pipelined.split_blocks > 0) == pack
+    monkeypatch.setenv("GENOMICSDB_TPU_DENSE", "1")
     jax_dense = _run(jax_gdb_query.main, argv + ["--engine", "block"])
-    assert len(dense.splitlines()) > 100
-    assert dense == plain == jax_dense
+    assert len(text.splitlines()) > 100
+    assert text == jax_dense

@@ -361,28 +361,3 @@ def test_bench_fused_lane_narrow_equals_wide(cuda):
     assert fused["narrow"]["checksum"] == fused["checksum"]
     assert TB.bench_device(cuda, **shape)["checksum"] == fused["checksum"]
 
-
-def test_dense_block_query_on_the_card(cuda, tmp_path, monkeypatch):
-    """GENOMICSDB_TPU_DENSE=1 on the card: every block takes the dense
-    step, none the kernel, and the text equals the CPU's without it."""
-    from genomicsdb_tpu_torch.query import block_writer as BW
-    from genomicsdb_tpu_torch.testing import write_cohort
-    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
-    c = write_cohort(str(tmp_path), 40, 300, seed=2)
-    vcf2gdb.main([c.loader])
-
-    def run(device):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            gdb_query.main(["-j", c.query, "--produce-Broad-GVCF",
-                            "--device", device])
-        return buf.getvalue()
-
-    want = run("cpu")
-    monkeypatch.setenv("GENOMICSDB_TPU_DENSE", "1")
-    BW.render_block_vcf_pipelined.dense_blocks = 0
-    launches = FC.fused_gather_remap.launches
-    got = run("cuda")
-    assert BW.render_block_vcf_pipelined.dense_blocks > 0
-    assert FC.fused_gather_remap.launches == launches
-    assert got and got == want

@@ -1,9 +1,11 @@
 """The port's `combine_step(remap_rows=...)` (the PL/AD/GT remaps of the
-general step restricted to the variant rows) against genomicsdb_tpu's,
-output by output, and the block writer's CPU-device restriction end to
-end: a cohort with a 17-allele site (past the CUDA kernel's 16-allele
-gate, so its blocks take the general step) gives the same text with
-`GENOMICSDB_TPU_VARROWS` at 0 and at 1, and the JAX block engine's."""
+general step restricted to given rows) against genomicsdb_tpu's,
+output by output, and on a cohort with a 17-allele site (past the CUDA
+kernel's 16-allele gate, so its blocks take the general step): the
+restriction to the store block's variant rows equals the unrestricted
+step there, and the port's writer text (which takes no restriction)
+equals the JAX block engine's with its CPU-device restriction on
+(`GENOMICSDB_TPU_VARROWS` 1) and off (0)."""
 
 import contextlib
 import io
@@ -13,11 +15,14 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from genomicsdb_tpu.ops import combine_step as JC
 from genomicsdb_tpu.tools import gdb_query as jax_gdb_query
 from genomicsdb_tpu_torch.ops import combine_step as TC
 from genomicsdb_tpu_torch.ops import fused_combine as FC
+from genomicsdb_tpu_torch.ops.store_block import store_to_block
+from genomicsdb_tpu_torch.query.driver import make_query_config
 from genomicsdb_tpu_torch.tools import gdb_query as torch_gdb_query
 from genomicsdb_tpu_torch.tools import vcf2gdb
 
@@ -176,6 +181,31 @@ def test_general_path_text_with_and_without_the_restriction(tmp_path,
     loader, query = write_many_allele_cohort(str(tmp_path))
     vcf2gdb.main([loader])
     argv = ["-j", query, "--produce-Broad-GVCF"]
+
+    # the restriction on the store's block: its variant rows, padded
+    args = torch_gdb_query._build_parser().parse_args(argv)
+    _, qp, vid, store = torch_gdb_query.load_context(args, 0)
+    blk, meta = store_to_block(store, make_query_config(qp, vid),
+                               interval=(0, 5000), return_meta=True)
+    assert not FC.kernel_takes(blk, blk.inv_bs.shape[2], blk.ploidy, False)
+    var = np.nonzero(~meta.is_ref_block_only)[0]
+    assert 0 < len(var) < blk.live.shape[0]
+    rows = np.zeros(1 << max(4, (len(var) - 1).bit_length()), np.int32)
+    rows[:len(var)] = var
+    flags = dict(max_merged=blk.inv_bs.shape[2], ploidy=blk.ploidy,
+                 gt_phase=meta.plan.gt_phase)
+    t = TC.block_to_tensors(blk, "cpu")
+    full = TC.combine_step(*t, **flags)
+    part = TC.combine_step(*t, remap_rows=rows, **flags)
+    for k, v in full.items():
+        want = v[rows] if k in ("pl", "ad", "gt", "gq", "dp_format",
+                                "min_dp") else v
+        assert torch.equal(want.view(torch.int32) if want.is_floating_point()
+                           else want,
+                           part[k].view(torch.int32)
+                           if part[k].is_floating_point() else part[k]), k
+
+    # the writer's text against the JAX block engine's, restricted or not
     monkeypatch.setenv("GENOMICSDB_TPU_SERVING_INDEX", "0")
     seen = []
     step = FC.combine_step
@@ -185,17 +215,12 @@ def test_general_path_text_with_and_without_the_restriction(tmp_path,
         return step(*args, **kw)
 
     monkeypatch.setattr(FC, "combine_step", spy)
-    texts = {}
-    for varrows in ("0", "1"):
-        monkeypatch.setenv("GENOMICSDB_TPU_VARROWS", varrows)
-        seen.clear()
-        texts[varrows] = _run(torch_gdb_query.main,
-                              argv + ["--device", "cpu"])
-        assert seen, "no block took the general step"
-        assert all((r is None) == (varrows == "0") for r in seen), seen
-    lines = texts["1"].splitlines()
+    text = _run(torch_gdb_query.main, argv + ["--device", "cpu"])
+    assert seen and all(r is None for r in seen), seen
+    lines = text.splitlines()
     site = [ln for ln in lines if ln.split("\t")[1] == str(SITE)]
     assert len(site) == 1 and site[0].split("\t")[4].count(",") == 15
-    jax_text = _run(jax_gdb_query.main, argv + ["--engine", "block"])
     assert len(lines) > 100
-    assert texts["1"] == texts["0"] == jax_text
+    for varrows in ("0", "1"):
+        monkeypatch.setenv("GENOMICSDB_TPU_VARROWS", varrows)
+        assert _run(jax_gdb_query.main, argv + ["--engine", "block"]) == text
