@@ -87,6 +87,24 @@ Every phase passes or the script exits non-zero:
      step on cuda must equal it on cpu, and `dryrun_multichip(4)` (four
      ranks on cuda:0, gloo) must pass.  The lanes' and tools' kernel
      launches join the main path's in the kernel JSON.
+  8. Streaming import and the demos: a seeded cohort at the full width
+     (1,000 samples in 8 files) but 400 records per file, a tenth of
+     phase 3's depth, because the streaming importer converts each cell
+     in Python; each file's BCF2 encoding (GATK4's wire format) is
+     pushed through the port's `StreamingImporter` in 64 KiB writes
+     with `import_batch()` after each, then `finalize()`.  The streamed
+     store must equal the one `vcf2gdb` writes from the same files, file
+     by file and byte for byte (the fragment's time-stamped name
+     masked); its block query on cuda:0 (pack on) must equal, byte for
+     byte, the `vcf2gdb` store's `gdb_query` on cuda and its own query
+     on the cpu device, and every block must launch the narrow kernel
+     (each launch's shape and bytes printed); over the head interval it
+     must equal the sequential engine.  Prints the streamed cells/s, the
+     finalize and query seconds.  Then the demos on cuda:0: the block
+     engine and query stream demos in this process (each must launch
+     the narrow kernel), the sharded demo as its 8 rank processes on
+     the card (gloo), whose gathered block must equal the unsharded
+     `combine_step` on cuda:0.  Their launches join the kernel JSON.
 
 Times are CUDA events around back-to-back calls after a warm-up.  A
 kernel's time is that of launches bound once (only a ctypes call between
@@ -116,6 +134,9 @@ KERNEL_SOURCE = "genomicsdb_tpu_torch/csrc/fused_gather_remap.cu"
 PALLAS = "genomicsdb_tpu/ops/pallas_combine.py"
 E2E_SAMPLES, E2E_RECORDS = 1000, 4000
 SERVING_QUERIES, SERVING_BP = 24, 10_000
+# phase 8: the full width at a tenth of phase 3's depth (the streaming
+# importer converts cells in Python, per cell), in 64 KiB writes
+STREAM_SAMPLES, STREAM_RECORDS, STREAM_WRITE = 1000, 400, 64 * 1024
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # the kernel's forms: (narrow, narrow_scalars)
 FORMS = {"wide": (False, False), "narrow": (True, False),
@@ -1074,12 +1095,17 @@ def _counted(torch, fn):
     return res, n - nn, nn
 
 
-def _printed_json(fn) -> str:
-    """The JSON line a tool's main prints."""
+def _stdout(fn) -> str:
+    """What fn() prints."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         fn()
-    return buf.getvalue().strip().splitlines()[-1]
+    return buf.getvalue()
+
+
+def _printed_json(fn) -> str:
+    """The JSON line a tool's main prints."""
+    return _stdout(fn).strip().splitlines()[-1]
 
 
 def _fused_lane_split(torch, TB, dev, shape, card):
@@ -1235,6 +1261,185 @@ def phase_remaining(torch, np, card):
     return wide, narrow
 
 
+def _store_files(workspace):
+    """{path under the workspace, the fragment directory's time-stamped
+    name masked: bytes} (the masking of tests/test_torch_standalone.py)."""
+    import re
+    out = {}
+    for d, _, files in os.walk(workspace):
+        for f in files:
+            path = os.path.join(d, f)
+            rel = re.sub(r"fragment_\d+", "fragment_<time_ns>",
+                         os.path.relpath(path, workspace))
+            with open(path, "rb") as fh:
+                out[rel] = fh.read()
+    return out
+
+
+def _stream_import(vid, vcfs):
+    """Each file's BCF2 encoding pushed through the port's
+    StreamingImporter in STREAM_WRITE-byte writes, import_batch() after
+    every write.  Returns (the finalized store, encode s, stream s,
+    finalize s)."""
+    from genomicsdb_tpu_torch.store.streaming_import import \
+        StreamingImporter
+    from genomicsdb_tpu_torch.vcf.bcf import text_to_bcf
+    t0 = time.perf_counter()
+    streams = {}
+    for path in vcfs:
+        with open(path) as f:
+            streams[path] = text_to_bcf(f.read())
+    t_encode = time.perf_counter() - t0
+    imp = StreamingImporter(vid)
+    for name in streams:
+        imp.add_buffer_stream(name)
+    t0 = time.perf_counter()
+    for name, data in streams.items():
+        for off in range(0, len(data), STREAM_WRITE):
+            imp.write(name, data[off:off + STREAM_WRITE])
+            imp.import_batch()
+    if not imp.import_batch():
+        raise AssertionError("the streaming importer is not idle after "
+                             "every stream was consumed")
+    t_stream = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = imp.finalize()
+    return store, t_encode, t_stream, time.perf_counter() - t0
+
+
+def phase_streaming_and_demos(torch, card):
+    """Phase 8.  Returns the narrow kernel launches of its counted runs
+    (the streamed store's query and the two in-process demos) and the
+    wide ones of the sharded demo's ranks."""
+    from genomicsdb_tpu_torch.core.config import QueryParams
+    from genomicsdb_tpu_torch.core.vid import VidMapper
+    from genomicsdb_tpu_torch.examples import (block_engine_demo,
+                                               query_stream_demo,
+                                               sharded_combine_demo)
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    from genomicsdb_tpu_torch.query import driver
+    from genomicsdb_tpu_torch.store import workspace as ws
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
+    _set_serving_index(False)
+    work = tempfile.mkdtemp(prefix="chip_smoke_stream_",
+                            dir=os.path.join(ROOT, "build"))
+    c = write_cohort(work, STREAM_SAMPLES, STREAM_RECORDS, seed=1)
+    vcf2gdb.main([c.loader])
+    vid = VidMapper.from_files(c.vid, c.callsets)
+    store, t_encode, t_stream, t_final = _stream_import(vid, c.vcfs)
+    cells = store.num_cells
+    print(f"streaming import: {STREAM_SAMPLES} samples x {STREAM_RECORDS} "
+          f"records per file, {len(c.vcfs)} BCF2 streams ({t_encode:.2f} s "
+          f"to encode) in {STREAM_WRITE}-byte writes: {cells} cells "
+          f"streamed in {t_stream:.2f} s ({cells / t_stream:.1f} cells/s), "
+          f"finalize {t_final:.2f} s")
+    ws2 = os.path.join(work, "ws_streamed")
+    ws.create_workspace(ws2)
+    ws.write_fragment(ws2, c.array, store)
+    want, got = _store_files(c.workspace), _store_files(ws2)
+    if sorted(want) != sorted(got) or any(want[k] != got[k] for k in want):
+        raise AssertionError("the streamed store differs from vcf2gdb's")
+    print(f"streamed store == vcf2gdb's store: {len(want)} files, byte "
+          "for byte (fragment name masked)")
+
+    qp = QueryParams.from_file(c.query, 0)
+    qc = driver.make_query_config(qp, vid)
+    dev = torch.device("cuda:0")
+    seen = []
+    launch = FC._launch
+
+    def recorder(*args, **kw):
+        seen.append((_launch_key(args, kw), _launch_bytes(torch, args,
+                                                          kw)[0]))
+        return launch(*args, **kw)
+
+    for obj, name in _counters():
+        setattr(obj, name, 0)
+    FC._launch = recorder
+    t0 = time.perf_counter()
+    try:
+        text = driver.run_vcf_query_block(store, qc, qp, vid, dev)
+        torch.cuda.synchronize()
+    finally:
+        FC._launch = launch
+    t_query = time.perf_counter() - t0
+    counts = {name: getattr(obj, name) for obj, name in _counters()}
+    stored = _query(["-j", c.query, "--produce-Broad-GVCF", "--device",
+                     "cuda"])
+    t0 = time.perf_counter()
+    on_cpu = driver.run_vcf_query_block(store, qc, qp, vid,
+                                          torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    records = text.count("\n")
+    print(f"streamed store's block query on cuda:0 (pack on): {records} "
+          f"records in {t_query:.3f} s; --device cpu {t_cpu:.3f} s "
+          f"[{card}]; {counts}")
+    for (bs, C, G_in, A_in, M, p, gt_w, F, Fi, Fs, form), nbytes in seen:
+        print(f"  launch B={bs[0]} S={bs[1]} C={C} G_in={G_in} A_in={A_in} "
+              f"M={M} ploidy={p} gt_w={gt_w} F={F} Fi={Fi} Fs={Fs} {form}: "
+              f"{nbytes} bytes, bound {_bound_ms(nbytes):.4f} ms")
+    if records == 0 or not (text == stored == on_cpu):
+        raise AssertionError("the streamed store's cuda text, the vcf2gdb "
+                             "store's and --device cpu differ")
+    if not (counts["narrow_launches"] == counts["launches"]
+            == counts["blocks"] == len(seen) > 0
+            and counts["general_path_blocks"] == 0
+            and counts["wide_blocks_when_packing"] == 0):
+        raise AssertionError(f"streamed store: expected one narrow kernel "
+                             f"launch per block: {counts}")
+    narrow = counts["narrow_launches"]
+    qp_head = QueryParams.from_file(c.query_head, 0)
+    qc_head = driver.make_query_config(qp_head, vid)
+    blk_head = driver.run_vcf_query_block(store, qc_head, qp_head, vid, dev)
+    seq_head = driver.run_vcf_query(store, qc_head, qp_head, vid)
+    if blk_head != seq_head or not seq_head:
+        raise AssertionError("streamed store: block engine differs from "
+                             "the sequential engine over the head interval")
+    print(f"streamed store: cuda text == vcf2gdb store's on cuda == --device "
+          f"cpu, byte for byte; block == sequential over columns "
+          f"{c.head_interval} ({seq_head.count(chr(10))} records)")
+
+    # the demos on cuda:0: two in this process, the sharded one as its
+    # 8 rank processes sharing the card (gloo)
+    for mod, needle in ((block_engine_demo, "block engine"),
+                        (query_stream_demo, "interval 1:12000-13000")):
+        name = mod.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        out, w, nn = _counted(torch, lambda: _stdout(
+            lambda: mod.main(["--device", "cuda"])))
+        if needle not in out or w or not nn:
+            raise AssertionError(f"{name}: {w} wide / {nn} narrow launches, "
+                                 f"output:\n{out}")
+        narrow += nn
+        print(f"{name} on cuda:0: {time.perf_counter() - t0:.1f} s, {nn} "
+              f"narrow kernel launches; " + out.strip().replace("\n", " | "))
+    t0 = time.perf_counter()
+    out = _stdout(lambda: sharded_combine_demo.main(["--device", "cuda"]))
+    reports = gdb_query.spawn_mesh.rank_reports
+    world = sharded_combine_demo.N_POS * sharded_combine_demo.N_ROW
+    if "mesh=(4 pos x 2 row) on cuda:0 [gloo]" not in out or \
+            [r["rank"] for r in reports] != list(range(world)) or not all(
+                r["launches"] == r["blocks"] > 0 for r in reports):
+        raise AssertionError(f"sharded demo: {out}\n{reports}")
+    blk = sharded_combine_demo.demo_block()
+    from genomicsdb_tpu_torch.ops.combine_step import (block_to_tensors,
+                                                       combine_step)
+    ref = combine_step(*block_to_tensors(blk, dev), max_merged=4, ploidy=2)
+    want = sharded_combine_demo.digest(
+        {k: v.cpu().numpy() for k, v in ref.items()})
+    if f"outputs sha256 {want}" not in out:
+        raise AssertionError("sharded demo: the gathered block differs from "
+                             "the unsharded combine_step on cuda:0")
+    mesh_wide = sum(r["launches"] for r in reports)
+    print(f"sharded_combine_demo: {world} rank processes on cuda:0, "
+          f"{time.perf_counter() - t0:.1f} s with start-up, {mesh_wide} wide "
+          f"kernel launches; gathered block == unsharded combine_step; "
+          + out.strip().replace("\n", " | "))
+    _set_serving_index(True)
+    return narrow, mesh_wide
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA card.")
@@ -1281,6 +1486,8 @@ def main() -> int:
     lap("6")
     lane_wide, lane_narrow = phase_remaining(torch, np, card)
     lap("7")
+    stream_narrow, demo_wide = phase_streaming_and_demos(torch, card)
+    lap("8")
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))
     print("phase walls: " + ", ".join(walls))
@@ -1296,13 +1503,13 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("fused_gather_remap (wide)", f"{PALLAS}:875", "wide",
-              c_off["launches"] + mesh_launches + lane_wide),
+              c_off["launches"] + mesh_launches + lane_wide + demo_wide),
         entry("fused_gather_remap (narrow int16 outputs)",
               f"{PALLAS}:1070", "narrow+scalars",
-              c_on["narrow_launches"] + lane_narrow),
+              c_on["narrow_launches"] + lane_narrow + stream_narrow),
         entry("fused_gather_remap (wide, non-mixed: the per-sample "
               "_make_kernel function)", f"{PALLAS}:264", "wide",
-              c_off["launches"] + mesh_launches + lane_wide),
+              c_off["launches"] + mesh_launches + lane_wide + demo_wide),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,8 @@ that fails, or `cuda` without a card, fails the run.
 
 The full result line (`metric`, `value`, `unit`, `vs_baseline`,
 `vs_baseline_mt`, `detail`, plus the card) is written to `--out`
-(default build/genomicsdb_tpu_torch/bench.json); stdout gets the JAX
+(default build/genomicsdb_tpu_torch/bench.json), and its table
+(`tools/perf_table`) to `perf_table.md` beside it; stdout gets the JAX
 bench's compact line.  The repository's BENCH.json stays the TPU rounds'
 file.
 """
@@ -776,6 +777,10 @@ def main(argv=None) -> dict:
     with open(args.out, "w") as f:
         json.dump(full, f, indent=1)
         f.write("\n")
+    # the headline table beside the JSON, from this very file; a failure
+    # here fails the run
+    from .tools.perf_table import write_table
+    write_table(args.out)
     compact = compact_line(full, args.out)
     print(json.dumps(compact))
     return compact

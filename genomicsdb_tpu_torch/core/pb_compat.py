@@ -5,20 +5,13 @@ ExportConfiguration / ImportConfiguration / VidMappingPB /
 CallsetMappingPB (src/resources/*.proto; built by GATK4's
 GenomicsDBImport/SelectVariants path) — into this engine's
 QueryParams / ImportParams / VidMapper.  Field numbers and names in
-genomicsdb_tpu/protos/compat/*.proto match the reference, so configs
+genomicsdb_tpu_torch/protos/compat/*.proto match the reference, so configs
 serialized for GenomicsDB parse here unchanged.
 """
 
 from __future__ import annotations
 
-import os
-import subprocess
-import sys
 from typing import Optional, Tuple
-
-_COMPAT_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                           "protos", "compat")
-_GEN_DIR = os.path.join(_COMPAT_DIR, "generated")
 
 _mods = None
 
@@ -28,26 +21,13 @@ _PROTOS = ["genomicsdb_coordinates", "genomicsdb_vid_mapping",
 
 
 def compat_pb2():
-    """Lazily protoc-compile + import the compat bindings; returns a dict
-    of module name -> module."""
+    """Lazily protoc-compile + import the compat bindings
+    (`protos.bindings`: the port's own modules, by qualified name);
+    returns a dict of module name -> module."""
     global _mods
-    if _mods is not None:
-        return _mods
-    os.makedirs(_GEN_DIR, exist_ok=True)
-    need = any(
-        not os.path.isfile(os.path.join(_GEN_DIR, f"{p}_pb2.py"))
-        or (os.path.getmtime(os.path.join(_GEN_DIR, f"{p}_pb2.py"))
-            < os.path.getmtime(os.path.join(_COMPAT_DIR, f"{p}.proto")))
-        for p in _PROTOS)
-    if need:
-        subprocess.run(
-            ["protoc", f"--python_out={_GEN_DIR}", f"-I{_COMPAT_DIR}"]
-            + [os.path.join(_COMPAT_DIR, f"{p}.proto") for p in _PROTOS],
-            check=True, capture_output=True)
-    if _GEN_DIR not in sys.path:
-        sys.path.insert(0, _GEN_DIR)
-    import importlib
-    _mods = {p: importlib.import_module(f"{p}_pb2") for p in _PROTOS}
+    if _mods is None:
+        from ..protos import bindings
+        _mods = bindings("compat", _PROTOS)
     return _mods
 
 

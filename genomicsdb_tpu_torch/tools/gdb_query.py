@@ -402,14 +402,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_mesh(raw_argv, world: int) -> str:
-    """Run this command line as `world` mesh rank processes on this host
-    (the launcher's environment: RANK, WORLD_SIZE, LOCAL_RANK,
-    LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and return the first
-    rank's stdout.  The ranks' stderr follows on this process's stderr;
-    each rank's report line is also parsed into
+def spawn_mesh(raw_argv, world: int,
+               module: str = "genomicsdb_tpu_torch.tools.gdb_query") -> str:
+    """Run `python -m <module> <raw_argv>` as `world` mesh rank processes
+    on this host (the launcher's environment: RANK, WORLD_SIZE,
+    LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and return
+    the first rank's stdout.  The ranks' stderr follows on this
+    process's stderr; each rank's report line is also parsed into
     `spawn_mesh.rank_reports`.  A rank that exits non-zero ends the
-    others and fails the query with its stderr."""
+    others and fails the run with its stderr."""
     port = free_port()
     procs, outs, errs, threads = [], [], [], []
     try:
@@ -418,9 +419,8 @@ def spawn_mesh(raw_argv, world: int) -> str:
                             LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
                             MASTER_ADDR="localhost", MASTER_PORT=str(port))
             pr = subprocess.Popen(
-                [sys.executable, "-m", "genomicsdb_tpu_torch.tools.gdb_query",
-                 *raw_argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                env=env)
+                [sys.executable, "-m", module, *raw_argv],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
             procs.append(pr)
             outs.append([])
             errs.append([])
@@ -444,7 +444,7 @@ def spawn_mesh(raw_argv, world: int) -> str:
             t.join()
     text = [b"".join(e).decode(errors="replace") for e in errs]
     if failed is not None:
-        raise SystemExit(f"gdb_query --mesh: rank {failed} exited "
+        raise SystemExit(f"{module}: mesh rank {failed} exited "
                          f"{procs[failed].returncode}:\n"
                          f"{text[failed][-4000:]}")
     reports = []

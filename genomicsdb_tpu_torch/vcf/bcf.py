@@ -615,7 +615,21 @@ def _fmt_float_bits(bits: int) -> str:
     return formats.format_float_vcf(f)
 
 
-def _decode_record(r: _Reader, hd: _HeaderDict, n_sample: int) -> str:
+def exact_float_bits(bits: int) -> str:
+    """A float32 (its bits) as text that parses back to the same float32
+    (the decimal expansion of its double), or "." for the missing
+    value."""
+    if bits == FLOAT_MISSING_BITS:
+        return "."
+    return repr(float(np.frombuffer(struct.pack("<I", bits),
+                                    dtype=np.float32)[0]))
+
+
+def _decode_record(r: _Reader, hd: _HeaderDict, n_sample: int,
+                   fmt_float=_fmt_float_bits) -> str:
+    """One record as VCF text.  `fmt_float` renders a float32 (its bits)
+    with its missing value: htslib's 6 significant digits by default,
+    `exact_float_bits` where the text is parsed back into float32."""
     l_shared = r.u32()
     l_indiv = r.u32()
     end_shared = r.o + l_shared
@@ -646,7 +660,7 @@ def _decode_record(r: _Reader, hd: _HeaderDict, n_sample: int) -> str:
             info_parts.append(key)   # flag
         elif btype == BCF_BT_FLOAT:
             info_parts.append(
-                f"{key}=" + ",".join(_fmt_float_bits(b) for b in vals))
+                f"{key}=" + ",".join(fmt_float(b) for b in vals))
         else:
             info_parts.append(
                 f"{key}=" + ",".join(
@@ -696,7 +710,7 @@ def _decode_record(r: _Reader, hd: _HeaderDict, n_sample: int) -> str:
                 sample_txt[s].append(_decode_gt(toks))
             elif btype == BCF_BT_FLOAT:
                 toks = [t for t in toks if t != FLOAT_EOV_BITS]
-                txt = ",".join(_fmt_float_bits(t) for t in toks)
+                txt = ",".join(fmt_float(t) for t in toks)
                 sample_txt[s].append(txt if toks else ".")
             else:
                 toks = [t for t in toks if t != INT32_EOV]
@@ -704,7 +718,7 @@ def _decode_record(r: _Reader, hd: _HeaderDict, n_sample: int) -> str:
                                for t in toks)
                 sample_txt[s].append(txt if toks else ".")
     assert r.o == end_indiv, (r.o, end_indiv)
-    qual = "." if qbits == FLOAT_MISSING_BITS else _fmt_float_bits(qbits)
+    qual = "." if qbits == FLOAT_MISSING_BITS else fmt_float(qbits)
     info_txt = ";".join(info_parts) if info_parts else "."
     cols = [hd.contigs[rid_ci], str(pos), rec_id, alleles[0],
             ",".join(alleles[1:]) if len(alleles) > 1 else ".",

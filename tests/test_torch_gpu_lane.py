@@ -361,3 +361,37 @@ def test_bench_fused_lane_narrow_equals_wide(cuda):
     assert fused["narrow"]["checksum"] == fused["checksum"]
     assert TB.bench_device(cuda, **shape)["checksum"] == fused["checksum"]
 
+
+
+def test_streamed_store_block_query_on_the_card(cuda, tmp_path):
+    """A store built by the streaming importer from BCF2 streams (GATK4's
+    wire format): its block query on the card (narrow kernel on every
+    block, packed fetch) equals the same query on the CPU device."""
+    from genomicsdb_tpu_torch.core.config import QueryParams
+    from genomicsdb_tpu_torch.core.vid import VidMapper
+    from genomicsdb_tpu_torch.query import driver
+    from genomicsdb_tpu_torch.store.streaming_import import \
+        StreamingImporter
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.vcf.bcf import text_to_bcf
+    c = write_cohort(str(tmp_path), 40, 300, seed=2)
+    vid = VidMapper.from_files(c.vid, c.callsets)
+    imp = StreamingImporter(vid)
+    for path in c.vcfs:
+        imp.add_buffer_stream(path)
+    for path in c.vcfs:
+        with open(path) as f:
+            data = text_to_bcf(f.read())
+        for off in range(0, len(data), 65536):
+            imp.write(path, data[off:off + 65536])
+            imp.import_batch()
+    store = imp.finalize()
+    qp = QueryParams.from_file(c.query, 0)
+    qc = driver.make_query_config(qp, vid)
+    FC.fused_gather_remap.narrow_launches = 0
+    FC.combine_block.blocks = 0
+    on_card = driver.run_vcf_query_block(store, qc, qp, vid, cuda)
+    assert FC.fused_gather_remap.narrow_launches \
+        == FC.combine_block.blocks > 0
+    assert on_card and on_card == driver.run_vcf_query_block(
+        store, qc, qp, vid, torch.device("cpu"))

@@ -214,6 +214,105 @@ def test_bench_modules_help_with_jax_blocked(bench_help, module):
     assert "--device" in text and "--platform" not in text
 
 
+HOST_TOOL_MODULES = ("genomicsdb_tpu_torch.tools.vcfdiff",
+                     "genomicsdb_tpu_torch.tools.workspace_tool",
+                     "genomicsdb_tpu_torch.tools.vcf_histogram",
+                     "genomicsdb_tpu_torch.tools.generate_config",
+                     "genomicsdb_tpu_torch.tools.vcf_combiner",
+                     "genomicsdb_tpu_torch.tools.perf_table",
+                     "genomicsdb_tpu_torch.tools.cleanroom_bcf_decoder",
+                     "genomicsdb_tpu_torch.examples.streaming_import_demo",
+                     "genomicsdb_tpu_torch.examples.query_stream_demo",
+                     "genomicsdb_tpu_torch.examples.block_engine_demo",
+                     "genomicsdb_tpu_torch.examples.sharded_combine_demo")
+# the other modules of the last slice, scanned and imported with jax
+# blocked
+HOST_MODULES = ("genomicsdb_tpu_torch.store.streaming_import",
+                "genomicsdb_tpu_torch.core.pb_config",
+                "genomicsdb_tpu_torch.core.pb_compat",
+                "genomicsdb_tpu_torch.protos")
+
+
+@pytest.fixture(scope="module")
+def host_tool_help():
+    """{module: its `--help` text}, every host tool and demo run as
+    `python -m` would run it, in one interpreter where jax and
+    genomicsdb_tpu are blocked (the other new modules imported there
+    too)."""
+    code = (BLOCK + "import runpy\n"
+            + "".join(f"import {m}\n" for m in HOST_MODULES)
+            + f"for m in {HOST_TOOL_MODULES!r}:\n"
+            "    sys.argv = [m, '--help']\n"
+            "    try:\n"
+            "        runpy.run_module(m, run_name='__main__')\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code in (0, None), (m, e.code)\n"
+            "    sys.stdout.write('\\f')\n"
+            "assert not [m for m in sys.modules if m.startswith(("
+            "'jax.', 'genomicsdb_tpu.'))]\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    texts = res.stdout.split("\f")[:-1]
+    assert len(texts) == len(HOST_TOOL_MODULES)
+    return dict(zip(HOST_TOOL_MODULES, texts))
+
+
+@pytest.mark.parametrize("module", HOST_TOOL_MODULES)
+def test_host_tools_and_demos_help_with_jax_blocked(host_tool_help, module):
+    """The port's host tools and demos are in the AST scan and print
+    their usage for `--help` where jax and genomicsdb_tpu cannot load;
+    the demos that run on a device take --device."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in HOST_MODULES:
+        path = mod.replace(".", os.sep)
+        assert path + ".py" in scanned or \
+            os.path.join(path, "__init__.py") in scanned, mod
+    assert module.replace(".", os.sep) + ".py" in scanned
+    text = host_tool_help[module]
+    assert "usage" in text.lower() and "--platform" not in text
+    name = module.rsplit(".", 1)[1]
+    assert name in text or "python -m" in text
+    if name in ("query_stream_demo", "block_engine_demo",
+                "sharded_combine_demo"):
+        assert "--device" in text
+
+
+LAZY_API = {
+    "VidMapper": "genomicsdb_tpu_torch.core.vid",
+    "QueryParams": "genomicsdb_tpu_torch.core.config",
+    "ImportParams": "genomicsdb_tpu_torch.core.config",
+    "import_callsets": "genomicsdb_tpu_torch.store.import_pipeline",
+    "StreamingImporter": "genomicsdb_tpu_torch.store.streaming_import",
+    "FeatureReader": "genomicsdb_tpu_torch.query.stream",
+    "CombinedRecordStream": "genomicsdb_tpu_torch.query.stream",
+    "driver": "genomicsdb_tpu_torch.query.driver",
+}
+
+
+def test_lazy_top_level_api_resolves_to_the_ports_objects():
+    """The JAX package's eight top-level names, each the port's object;
+    importing the package loads none of them, with jax blocked."""
+    import importlib
+    import genomicsdb_tpu_torch as port
+    for name, mod in LAZY_API.items():
+        m = importlib.import_module(mod)
+        want = m if name == "driver" else getattr(m, name)
+        assert getattr(port, name) is want, name
+    with pytest.raises(AttributeError, match="no attribute 'combine'"):
+        port.combine
+    code = (BLOCK + "import genomicsdb_tpu_torch as g\n"
+            "assert not [m for m in sys.modules if m.startswith("
+            "'genomicsdb_tpu_torch.')]\n"
+            f"for n in {sorted(LAZY_API)!r}:\n"
+            "    getattr(g, n)\n"
+            "print(g.StreamingImporter.__module__)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip() == LAZY_API["StreamingImporter"]
+
+
 PARALLEL_MODULES = ("genomicsdb_tpu_torch.parallel.comm",
                     "genomicsdb_tpu_torch.parallel.sharded",
                     "genomicsdb_tpu_torch.parallel.multihost",
