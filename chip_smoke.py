@@ -60,16 +60,21 @@ Every phase passes or the script exits non-zero:
      <a quarter of the store>` must too, over more than one window and
      with a lower device-memory high-water mark than the in-RAM query.
   6. Distribution: `gdb_query --mesh 1x1 --device cuda` (one rank
-     process, NCCL) and `--mesh 2x2` (four rank processes sharing
-     cuda:0 on gloo) must give phase 3's text byte for byte; every rank
-     must have launched the CUDA kernel once per block (printed per
-     rank).  The 2x2 mesh's largest shard launch (the first rank's shard
-     of the main path's largest block) is held against the twin and
-     timed.  The cohort's store is cut into 4 column partitions
-     (`parallel.repartition`); `--parallel-ranks --num-ranks 4` on cuda
-     must equal the in-process `--num-ranks 4` text.  Two processes run
-     a `multihost.gather_blobs_to_root` round (lengths 0 and 3 MB, 1 MB
-     rounds).  Wall times beside the unsharded query's in this call.
+     process, NCCL), `--mesh 2x1` and `--mesh 2x2` (two and four rank
+     processes sharing cuda:0 on gloo) must give phase 3's text byte for
+     byte; every rank must have launched the CUDA kernel once per chunk,
+     the records the ranks built must sum to the unsharded query's (each
+     built once across the mesh: only row-0 ranks build), and a row
+     group of one must run no all-gather.  Each rank's counts are
+     printed (blocks, launches, records built, block-row scatter,
+     all-gather and rendered text bytes).  The 2x2 mesh's largest shard
+     launch (the first rank's shard of the main path's largest block) is
+     held against the twin and timed.  The cohort's store is cut into
+     4 column partitions (`parallel.repartition`); `--parallel-ranks
+     --num-ranks 4` on cuda must equal the in-process `--num-ranks 4`
+     text.  Two processes run a `multihost.gather_blobs_to_root` round
+     (lengths 0 and 3 MB, 1 MB rounds).  Wall times beside the
+     unsharded query's in this call.
   7. The remaining paths: the port's bench lanes (`genomicsdb_tpu_torch.
      bench`) in this process at the JAX bench's shapes, each printed
      as JSON with the card: `device`, `device_fused` and
@@ -951,6 +956,8 @@ def phase_distribution(torch, np, c, card, main_text, largest):
     from genomicsdb_tpu_torch.ops.combine_step import to_tensor
     from genomicsdb_tpu_torch.parallel import comm
     from genomicsdb_tpu_torch.parallel import sharded as TS
+    from genomicsdb_tpu_torch.query.block_writer import (
+        render_block_vcf_pipelined as RB)
     from genomicsdb_tpu_torch.tools import gdb_query
     print(f"distribution: collectives by {comm.ALL_GATHER} (all-gather) "
           f"and torch.distributed.gather; torch {torch.__version__}")
@@ -958,15 +965,17 @@ def phase_distribution(torch, np, c, card, main_text, largest):
     # every query of this phase runs the engine (the mesh never consults
     # the serving index; the unsharded query would be served from it)
     _set_serving_index(False)
+    records = RB.records_built
     t0 = time.perf_counter()
     unsharded = _query(base)
     torch.cuda.synchronize()
     t_unsharded = time.perf_counter() - t0
+    records = RB.records_built - records
     if unsharded != main_text:
         raise AssertionError("the unsharded query differs from phase 3's")
     launches = 0
     walls = {}
-    for shape in ("1x1", "2x2"):
+    for shape in ("1x1", "2x1", "2x2"):
         n_pos, n_row = (int(x) for x in shape.split("x"))
         world = n_pos * n_row
         want = "nccl" if world <= torch.cuda.device_count() else "gloo"
@@ -979,8 +988,11 @@ def phase_distribution(torch, np, c, card, main_text, largest):
                   f"{r['row']}) on {r['device']} [{r['backend']}]: "
                   f"{r['blocks']} blocks, {r['launches']} kernel launches, "
                   f"{r['general_path_blocks']} general-path blocks, "
-                  f"{r['all_gathers']} row gathers of "
-                  f"{r['all_gather_bytes']} bytes; joined the mesh in "
+                  f"{r['records_built']} records built in "
+                  f"{r['blocks_built']} blocks, {r['lut_scatter_bytes']} "
+                  f"block-row scatter bytes, {r['all_gathers']} row "
+                  f"gathers of {r['all_gather_bytes']} bytes, "
+                  f"{r['text_bytes']} text bytes; joined the mesh in "
                   f"{r['mesh_s']:.3f} s, query {r['query_s']:.3f} s")
         if text != main_text:
             raise AssertionError(f"--mesh {shape} differs from the "
@@ -990,11 +1002,23 @@ def phase_distribution(torch, np, c, card, main_text, largest):
                 and r["general_path_blocks"] == 0 for r in reports):
             raise AssertionError(f"--mesh {shape}: expected one {want} "
                                  "rank per position, each launching the "
-                                 f"kernel once per block: {reports}")
+                                 f"kernel once per chunk: {reports}")
+        built = sum(r["records_built"] for r in reports)
+        if built != records or any(r["records_built"] or r["blocks_built"]
+                                   for r in reports if r["row"]):
+            raise AssertionError(f"--mesh {shape}: the ranks built {built} "
+                                 f"records, the unsharded query {records}; "
+                                 "only row-0 ranks may build")
+        if n_row == 1 and any(r["all_gathers"] or r["all_gather_bytes"]
+                              for r in reports):
+            raise AssertionError(f"--mesh {shape}: a row group of one ran "
+                                 "an all-gather")
         launches += sum(r["launches"] for r in reports)
-    print(f"mesh query walls: unsharded {t_unsharded:.3f} s, --mesh 1x1 "
-          f"(nccl) {walls['1x1']:.3f} s, --mesh 2x2 (gloo, 4 ranks on "
-          f"cuda:0) {walls['2x2']:.3f} s; texts byte-identical [{card}]")
+    print(f"mesh query walls: unsharded {t_unsharded:.3f} s "
+          f"({records} records), --mesh 1x1 (nccl) {walls['1x1']:.3f} s, "
+          f"--mesh 2x1 (gloo, 2 ranks on cuda:0) {walls['2x1']:.3f} s, "
+          f"--mesh 2x2 (gloo, 4 ranks on cuda:0) {walls['2x2']:.3f} s; "
+          f"texts byte-identical [{card}]")
 
     # the largest 2x2 shard launch: the first rank's shard of the main
     # path's largest block

@@ -91,7 +91,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     shape, the combined text and the seconds it took to join the
     mesh)."""
     from .device import resolve_device
-    from .tools.gdb_query import child_env, free_port
+    from .tools.gdb_query import free_port, rank_env
     from .tools.genome_bench import write_vid
     dev = resolve_device(device)
     n_pos, n_row = _mesh_shape(n_devices)
@@ -101,12 +101,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         with open(os.path.join(work, "cohort.vcf"), "w") as f:
             f.write("\n".join(DRYRUN_VCF) + "\n")
         write_vid(os.path.join(work, "vid.json"))
-        port = str(free_port())
+        port = free_port()
         for r in range(n_devices):
-            env = child_env(RANK=str(r), WORLD_SIZE=str(n_devices),
-                            LOCAL_RANK=str(r),
-                            LOCAL_WORLD_SIZE=str(n_devices),
-                            MASTER_ADDR="localhost", MASTER_PORT=port)
+            env = rank_env(r, n_devices, port)
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "genomicsdb_tpu_torch.graft_entry",
                  "--dryrun-rank", work, "--mesh", f"{n_pos}x{n_row}",

@@ -413,6 +413,17 @@ def block_to_tensors(blk, device) -> tuple:
     """A CellBlock's arrays as tensors on `device`, in `combine_step`'s
     argument order (the counterpart of the JAX `block_to_args`).  Takes
     a block built by either package: both have the same fields."""
+    slabs = (blk.pl, blk.pl_len, blk.ad, blk.ad_len,
+             blk.gt, blk.gq, blk.dp, blk.min_dp, blk.dp_info, blk.info_f,
+             blk.info_i, blk.info_fs)
+    return _slab_tensors(blk, slabs, device) \
+        + tuple(to_tensor(a, device) for a in per_block_arrays(blk))
+
+
+def per_block_arrays(blk) -> tuple:
+    """The block's last seven combine_step arguments as host arrays:
+    inv_bs, nr_bs, rec_num_merged, has_nr, live, del_rw, gt_lens (the
+    optional ones filled as block_to_tensors fills them)."""
     del_rw = blk.del_rw if blk.del_rw is not None \
         else np.zeros(blk.live.shape, dtype=bool)
     has_nr = blk.rec_has_nr if blk.rec_has_nr is not None \
@@ -420,13 +431,8 @@ def block_to_tensors(blk, device) -> tuple:
     gt_w = blk.gt.shape[2]
     gt_lens = blk.gt_len_bs if blk.gt_len_bs is not None \
         else np.full(blk.live.shape, gt_w, dtype=np.int32)
-    slabs = (blk.pl, blk.pl_len, blk.ad, blk.ad_len,
-             blk.gt, blk.gq, blk.dp, blk.min_dp, blk.dp_info, blk.info_f,
-             blk.info_i, blk.info_fs)
-    per_block = (blk.inv_bs, blk.nr_bs, blk.rec_num_merged, has_nr,
-                 blk.live, del_rw, gt_lens)
-    return _slab_tensors(blk, slabs, device) \
-        + tuple(to_tensor(a, device) for a in per_block)
+    return (blk.inv_bs, blk.nr_bs, blk.rec_num_merged, has_nr, blk.live,
+            del_rw, gt_lens)
 
 
 def _slab_tensors(blk, slabs, device) -> tuple:

@@ -538,9 +538,16 @@ def kernel_takes(blk, max_merged: int, ploidy: int,
     empty block, ploidy above 6, more than 16 merged alleles, or mixed
     ploidy without stored GT lengths."""
     B, S = np.asarray(blk.live).shape
+    return kernel_takes_shape(B, S, max_merged, ploidy) \
+        and not (mixed_ploidy and blk.gt_len_bs is None)
+
+
+def kernel_takes_shape(B: int, S: int, max_merged: int,
+                       ploidy: int) -> bool:
+    """The kernel's gates on a block's shape alone (`kernel_takes` for a
+    block with stored GT lengths)."""
     return not (S == 0 or B == 0 or ploidy > MAX_PLOIDY
-                or max_merged > MAX_MERGED
-                or (mixed_ploidy and blk.gt_len_bs is None))
+                or max_merged > MAX_MERGED)
 
 
 def combine_step_fused(blk, device, *, max_merged: int, ploidy: int,

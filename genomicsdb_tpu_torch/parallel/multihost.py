@@ -36,11 +36,12 @@ def initialize(coordinator: Optional[str] = None,
         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
 
 
-def _world():
-    """(this process's index, the process count)."""
+def _world(group=None):
+    """(this process's index, the process count) in `group` (default:
+    the world)."""
     if not dist.is_initialized():
         return 0, 1
-    return dist.get_rank(), dist.get_world_size()
+    return dist.get_rank(group), dist.get_world_size(group)
 
 
 def my_partitions(num_partitions: int) -> List[int]:
@@ -57,7 +58,8 @@ def my_partitions(num_partitions: int) -> List[int]:
 GATHER_CHUNK = 1 << 30
 
 
-def gather_blobs_to_root(blob: bytes) -> Optional[List[bytes]]:
+def gather_blobs_to_root(blob: bytes, group=None,
+                         device="cpu") -> Optional[List[bytes]]:
     """Gather variable-length byte blobs to process 0 with gatherv
     semantics (MPI_Gather lengths + MPI_Gatherv payload,
     gt_mpi_gather.cc:167-263): the lengths are all-gathered first, then
@@ -65,14 +67,21 @@ def gather_blobs_to_root(blob: bytes) -> Optional[List[bytes]]:
     max-size padding, so root memory is O(sum(len)) rather than
     O(n_hosts * max_len) — in slices of at most GATHER_CHUNK bytes (>2 GB
     safe, the reference's BigMPI case).  Returns the blobs in process
-    order on process 0, None elsewhere."""
-    pid, n = _world()
+    order on process 0, None elsewhere.  With `group` the processes are
+    the group's and process 0 is its first; the bytes move through
+    tensors on `device` (a card for an NCCL group)."""
+    pid, n = _world(group)
     if n == 1:
         return [blob]
-    length = torch.tensor([len(blob)], dtype=torch.int64)
-    lengths = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
-    dist.all_gather(lengths, length)
-    src = torch.frombuffer(bytearray(blob), dtype=torch.uint8) \
+
+    def member(i):
+        return dist.get_global_rank(group, i) if group is not None else i
+
+    length = torch.tensor([len(blob)], dtype=torch.int64, device=device)
+    lengths = [torch.zeros(1, dtype=torch.int64, device=device)
+               for _ in range(n)]
+    dist.all_gather(lengths, length, group=group)
+    src = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device) \
         if blob else torch.empty(0, dtype=torch.uint8)
     pieces: List[bytes] = []
     for i in range(n):
@@ -84,11 +93,12 @@ def gather_blobs_to_root(blob: bytes) -> Optional[List[bytes]]:
                 if pid == 0:
                     parts.append(blob[off:off + m])
             elif pid == i:
-                dist.send(src[off:off + m].contiguous(), dst=0)
+                dist.send(src[off:off + m].contiguous(), dst=member(0),
+                          group=group)
             elif pid == 0:
-                got = torch.empty(m, dtype=torch.uint8)
-                dist.recv(got, src=i)
-                parts.append(got.numpy().tobytes())
+                got = torch.empty(m, dtype=torch.uint8, device=device)
+                dist.recv(got, src=member(i), group=group)
+                parts.append(got.cpu().numpy().tobytes())
         if pid == 0:
             pieces.append(b"".join(parts))
     if pid != 0:

@@ -1,42 +1,58 @@
 """The sharded combine on a ("pos", "row") mesh of rank processes over
 `torch.distributed` (counterpart of `genomicsdb_tpu.parallel.sharded`).
 
-One process per mesh position: the "pos" axis shards a block's records
+One process per mesh position: the "pos" axis shards a chunk's records
 (like the reference's column partitions: no communication), the "row"
 axis shards its samples.  The cross-sample INFO medians and sums need
 the whole sample axis, so `_reduce_math` all-gathers it over the row
 group before the unchanged local math (the JAX `axis_name="row"`); the
-remaps are local.  Outputs therefore equal the unsharded combine bit for
-bit.
+remaps are local.  A row group of one rank already holds the whole
+sample axis and runs no collective (`Mesh.row_group` is None), as the
+JAX all-gather over a one-device axis moves nothing.  Outputs equal the
+unsharded combine bit for bit.
 
-Every rank builds the same block on its host (`store_to_block` is
-deterministic) and takes its shard: its sample rows of the `[S, C, ...]`
-cell slabs (cached on the store's dense layout, like the unsharded
-upload) and its records x samples of the `[B, S, ...]` LUTs, padded
-with the fills of the JAX package's `pad_block_for_mesh` (`_LAYOUT`:
-padded samples and records have no live cell, so every kernel and
-reduction masks them).  On a CUDA device each
-shard runs the CUDA kernel (`fused_combine.fused_gather_remap`, wide
-form) on its local slab; blocks past the kernel's gates take the general
-step, counted in `mesh_combine.general_path_blocks`.  The first rank
-gathers the shards' outputs (all one shape after padding) and trims them
-to the block's shape (`gather_outputs`); the JAX mesh branch's layout.
+The block engine's query (`query.block_writer`, `gdb_query --mesh`)
+builds each record once across the mesh: pos group p takes span p of
+each chunk's records (`pos_span`), and only its row-0 rank builds that
+span's block (`store_to_block`).  It sends each rank of its row group
+that rank's sample rows of the block's seven per-block tensors (LUTs,
+live cells, record flags) with a small header (`scatter_rows`); every
+rank holds its own sample rows of the store-wide `[S, C, ...]` cell
+slabs once per query (`local_slabs`).  Padded samples and records take
+the fills of the JAX package's `pad_block_for_mesh` (`_LAYOUT`), so they
+have no live cell and every kernel and reduction masks them.  On a CUDA
+device each shard runs the CUDA kernel (`fused_combine.
+fused_gather_remap`, wide form) on its local slab; blocks past the
+kernel's gates take the general step, counted in
+`mesh_combine.general_path_blocks`.  The row group's outputs go to its
+row-0 rank (`gather_rows`), which renders the span's text.
+
+The step functions below also shard one whole block over the mesh,
+records and samples (`shard_block`), and assemble every shard's outputs
+on the first rank (`gather_outputs`): the JAX mesh branch's layout, used
+by the sharded demo, the graft entry and the parity tests.
 
   make_mesh              the process group (backend by `choose_backend`),
                          this rank's device and a DeviceMesh with
                          mesh_dim_names ("pos", "row")
+  local_slabs            this rank's sample rows of the store-wide slabs
+  scatter_rows           the row group's block rows, each rank its samples
+  combine_shard          the kernel step (or the general one past its
+                         gates) on one rank's shard
+  gather_rows            the row group's outputs, on its row-0 rank
   shard_tensors          one rank's shard of block_to_tensors-order tensors
   shard_block            the same from a CellBlock, on the mesh's device
-  shard_block_fused      shard_block, or None past the kernel's gates
   sharded_combine_step   the general step on a shard
   sharded_combine_step_fused  the CUDA kernel (its twin on the CPU) on a
                          shard, then the reductions over the row group
-  mesh_combine           the block engine's combine of one block's shard
+  mesh_combine           combine_shard of one whole block's shard
   gather_outputs         the shards' outputs, assembled on the first rank
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import datetime
 import os
 import sys
@@ -50,6 +66,7 @@ import torch.distributed as dist
 from ..core import formats
 from ..ops import fused_combine as FC
 from ..ops.combine_step import block_to_tensors, combine_step, to_tensor
+from ..ops.store_block import dense_layout
 from .comm import PG_TIMEOUT_S, gather_to_root
 
 INT_MISSING = formats.INT_MISSING
@@ -70,6 +87,10 @@ _LAYOUT = (
     (1, 0, -1), (1, 0, False), (1, 0, 0),         # live, del_rw, gt_lens
 )
 N_SLABS = 12
+# the slabs' names in a dense layout (ops.store_block.dense_layout), in
+# block_to_tensors order
+SLAB_KEYS = ("pl", "pl_len", "ad", "ad_len", "gt", "gq", "dp", "min_dp",
+             "dp_info", "info_f", "info_i", "info_fs")
 _PER_SAMPLE = ("pl", "ad", "gt", "gq", "dp_format", "min_dp", "live")
 
 
@@ -115,8 +136,24 @@ class Mesh:
 
     @property
     def row_group(self):
+        """The ranks of this rank's pos group (its records, every
+        sample); None for a group of one, which needs no collective."""
         return self.device_mesh.get_group("row") \
-            if self.device_mesh is not None else None
+            if self.device_mesh is not None and self.n_row > 1 else None
+
+    @property
+    def pos_group(self):
+        """The ranks of this rank's row (one per pos group); None for a
+        group of one."""
+        return self.device_mesh.get_group("pos") \
+            if self.device_mesh is not None and self.n_pos > 1 else None
+
+    @property
+    def wire(self) -> torch.device:
+        """Where tensors that exist only to be sent lie: on the card for
+        NCCL, on the host for gloo."""
+        return self.device if self.backend == "nccl" \
+            else torch.device("cpu")
 
 
 def make_mesh(n_pos: int, n_row: int, device) -> Mesh:
@@ -165,6 +202,14 @@ def _span(n: int, parts: int, idx: int):
     per = -(-n // parts)
     lo = min(idx * per, n)
     return lo, min(lo + per, n), per
+
+
+def pos_span(n: int, mesh: Mesh) -> tuple:
+    """(lo, hi): the items [lo, hi) of n that this rank's pos group
+    takes (the mesh's record split; empty for a group past the last
+    item)."""
+    lo, hi, _ = _span(n, mesh.n_pos, mesh.pos)
+    return lo, hi
 
 
 def _cut(t: torch.Tensor, axis: int, span, fill) -> torch.Tensor:
@@ -237,15 +282,6 @@ def shard_block(mesh: Mesh, blk, device=None) -> tuple:
     return slabs + tuple(_upload(t, device) for t in per_block)
 
 
-def shard_block_fused(mesh: Mesh, blk, device=None, *, max_merged: int,
-                      ploidy: int, mixed_ploidy: bool = False):
-    """shard_block for the kernel step, or None for a block past the
-    kernel's gates (`fused_combine.kernel_takes`)."""
-    if not FC.kernel_takes(blk, max_merged, ploidy, mixed_ploidy):
-        return None
-    return shard_block(mesh, blk, device)
-
-
 def sharded_combine_step(mesh: Mesh, *local, max_merged: int, ploidy: int,
                          gt_phase: bool = False,
                          mixed_ploidy: bool = False) -> Dict[str,
@@ -281,60 +317,197 @@ def sharded_combine_step_fused(mesh: Mesh, *local, max_merged: int,
     return FC._fused_post(k, del_rw, live, group=mesh.row_group)
 
 
-def mesh_combine(mesh: Mesh, blk, *, max_merged: int, ploidy: int,
-                 gt_phase: bool = False, mixed_ploidy: bool = False
-                 ) -> Dict[str, torch.Tensor]:
-    """The block engine's combine of this rank's shard of `blk`: the
-    kernel step where its gates allow, the general step otherwise.
-    Counts blocks in `mesh_combine.blocks` and the general-path ones in
+def combine_shard(mesh: Mesh, local, *, fused: bool, max_merged: int,
+                  ploidy: int, gt_phase: bool = False,
+                  mixed_ploidy: bool = False) -> Dict[str, torch.Tensor]:
+    """The block engine's combine of this rank's shard (block_to_tensors
+    order): the kernel step when `fused` (the block passed the kernel's
+    gates), the general step otherwise.  Counts blocks in
+    `mesh_combine.blocks` and the general-path ones in
     `mesh_combine.general_path_blocks`."""
     mesh_combine.blocks += 1
     kw = dict(max_merged=max_merged, ploidy=ploidy, gt_phase=gt_phase,
               mixed_ploidy=mixed_ploidy)
-    local = shard_block_fused(mesh, blk, max_merged=max_merged,
-                              ploidy=ploidy, mixed_ploidy=mixed_ploidy)
-    if local is not None:
+    if fused:
         return sharded_combine_step_fused(mesh, *local, **kw)
     mesh_combine.general_path_blocks += 1
-    return sharded_combine_step(mesh, *shard_block(mesh, blk), **kw)
+    return sharded_combine_step(mesh, *local, **kw)
+
+
+def mesh_combine(mesh: Mesh, blk, *, max_merged: int, ploidy: int,
+                 gt_phase: bool = False, mixed_ploidy: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+    """combine_shard of this rank's shard of the whole block `blk`
+    (`shard_block`), the kernel step where its gates allow."""
+    return combine_shard(
+        mesh, shard_block(mesh, blk),
+        fused=FC.kernel_takes(blk, max_merged, ploidy, mixed_ploidy),
+        max_merged=max_merged, ploidy=ploidy, gt_phase=gt_phase,
+        mixed_ploidy=mixed_ploidy)
 
 
 mesh_combine.blocks = 0
 mesh_combine.general_path_blocks = 0
 
 
+def local_slabs(mesh: Mesh, store, qc, plan, gt_w: int,
+                pad_cells_to: int) -> tuple:
+    """This rank's sample rows of the 12 store-wide cell slabs of the
+    query's dense layout (`store_block.dense_layout`), padded to the
+    shard's width, on the mesh's device.  A row-0 rank builds the
+    blocks, so it cuts its rows from the query's layout (the one
+    store_to_block builds and caches); a row > 0 rank builds no block
+    and lays out its own samples alone.  A row's cell runs do not depend
+    on the other rows, so both give the block's live cell indices the
+    same meaning.  The tensors are cached on the layout: a query uploads
+    them once."""
+    lo, hi, per = _span(len(qc.rows_to_query), mesh.n_row, mesh.row)
+    if mesh.row == 0:
+        lay = dense_layout(store, qc, plan, gt_w, pad_cells_to)
+        cut = (lo, hi, per)
+    else:
+        own = copy.copy(qc)
+        own.rows_to_query = list(qc.rows_to_query[lo:hi])
+        lay = dense_layout(store, own, plan, gt_w, pad_cells_to)
+        cut = (0, hi - lo, per)
+    key = ("_torch_mesh_slabs", str(mesh.device), mesh.n_row, mesh.row)
+    hit = lay.get(key)
+    if hit is None:
+        hit = lay[key] = tuple(
+            _upload(_cut(to_tensor(lay[k], "cpu"), s_ax, cut, fill),
+                    mesh.device)
+            for k, (s_ax, _, fill) in zip(SLAB_KEYS, _LAYOUT[:N_SLABS]))
+    return hit
+
+
+@dataclass(frozen=True)
+class RowsHeader:
+    """What a row group must agree on to combine one block: its padded
+    record count, merged-allele LUT width, ploidy and GT flags, and
+    whether the kernel takes it."""
+    B: int
+    max_merged: int
+    ploidy: int
+    gt_phase: bool
+    mixed_ploidy: bool
+    fused: bool
+
+
+def empty_rows(B: int, S: int, max_merged: int) -> tuple:
+    """The seven per-block arrays (`combine_step.per_block_arrays`
+    order) of B padded records with no live cell: the block of a span
+    that holds no record."""
+    fills = [f for _, _, f in _LAYOUT[N_SLABS:]]
+    shapes = ((B, S, max_merged), (B, S), (B,), (B,), (B, S), (B, S),
+              (B, S))
+    return tuple(np.full(sh, f, dtype=bool if isinstance(f, bool)
+                         else np.int32) for sh, f in zip(shapes, fills))
+
+
+def _pack_rows(rows, span) -> np.ndarray:
+    """One rank's sample rows of the seven per-block arrays, padded with
+    `_LAYOUT`'s fills, as one int32 word vector.  Padded samples have no
+    live cell.  Their GT lengths take 0, shard_block's fill for a block
+    with stored lengths: the steps read the lengths only for a
+    mixed-ploidy block, and such a block has stored lengths."""
+    words = []
+    for a, (s_ax, _, fill) in zip(rows, _LAYOUT[N_SLABS:]):
+        a = np.asarray(a)
+        if s_ax is not None:
+            lo, hi, per = span
+            a = a[:, lo:hi]
+            if hi - lo < per:
+                pad = [(0, 0)] * a.ndim
+                pad[1] = (0, per - (hi - lo))
+                a = np.pad(a, pad, constant_values=fill)
+        words.append(a.astype(np.int32).reshape(-1))
+    return np.concatenate(words)
+
+
+def _unpack_rows(words: torch.Tensor, B: int, s_loc: int, M: int) -> tuple:
+    shapes = ((B, s_loc, M), (B, s_loc), (B,), (B,), (B, s_loc),
+              (B, s_loc), (B, s_loc))
+    out, off = [], 0
+    for sh, (_, _, fill) in zip(shapes, _LAYOUT[N_SLABS:]):
+        n = int(np.prod(sh))
+        x = words[off:off + n].reshape(sh)
+        out.append(x.to(torch.bool) if isinstance(fill, bool) else x)
+        off += n
+    return tuple(out)
+
+
+def scatter_rows(mesh: Mesh, header: Optional[RowsHeader], rows,
+                 S: int) -> tuple:
+    """(header, this rank's shard of the seven per-block arrays on the
+    mesh's device).  The row group's row-0 rank holds the block: its
+    `header` and its host `rows` (`combine_step.per_block_arrays` order,
+    S samples); the others pass None for both.  That rank broadcasts the
+    header over the row group, then scatters each rank its sample rows
+    (padded with `_LAYOUT`'s fills) as one int32 word vector: two
+    collectives, none in a row group of one.  Counts the bytes this rank
+    sent or received in `scatter_rows.bytes`."""
+    group = mesh.row_group
+    if group is None:
+        return header, tuple(to_tensor(np.asarray(a), mesh.device)
+                             for a in rows)
+    root = dist.get_global_rank(group, 0)
+    head = torch.tensor([int(v) for v in dataclasses.astuple(header)]
+                        if header is not None else [0] * 6,
+                        dtype=torch.int64, device=mesh.wire)
+    dist.broadcast(head, src=root, group=group)
+    vals = head.tolist()
+    header = RowsHeader(*vals[:3], *map(bool, vals[3:]))
+    s_loc = -(-S // mesh.n_row)
+    B, M = header.B, header.max_merged
+    n_words = B * s_loc * (M + 4) + 2 * B
+    local = torch.empty(n_words, dtype=torch.int32, device=mesh.wire)
+    parts = None
+    if mesh.row == 0:
+        parts = [torch.from_numpy(_pack_rows(rows, _span(S, mesh.n_row, r)))
+                 .to(mesh.wire) for r in range(mesh.n_row)]
+    dist.scatter(local, parts, src=root, group=group)
+    scatter_rows.bytes += (local.numel() * 4 + head.numel() * 8) \
+        * (mesh.n_row - 1 if mesh.row == 0 else 1)
+    if mesh.wire != mesh.device:
+        local = _upload(local, mesh.device)
+    return header, _unpack_rows(local, B, s_loc, M)
+
+
+scatter_rows.bytes = 0
+
+
 def _np_dtype(dt: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dt).numpy().dtype
 
 
-def gather_outputs(mesh: Mesh, out: Dict[str, torch.Tensor], B: int,
-                   S: int) -> Optional[Dict[str, np.ndarray]]:
-    """Every shard's outputs, assembled on the mesh's first rank and
-    trimmed to the block's B records x S samples (the JAX mesh branch's
-    layout: [B, S, ...] per-sample outputs, [F, B] INFO reductions, [B]
-    DP sum); None on the other ranks.  One collective: each rank's
+def _assemble(out: Dict[str, torch.Tensor], group, size: int, n_pos: int,
+              n_row: int, B: int, S: int) -> Optional[Dict[str, np.ndarray]]:
+    """The outputs of `size` shards (n_pos x n_row, in group rank order)
+    on the group's first rank, trimmed to B records x S samples; None on
+    the others.  One collective, none for a group of one: each rank's
     outputs move as one byte blob, the same size on every rank."""
     keys = sorted(out)
     parts = [out[k].contiguous().reshape(-1).view(torch.uint8)
              for k in keys]
-    got = gather_to_root(torch.cat(parts), None)
+    blob = torch.cat(parts)
+    got = gather_to_root(blob, group) if size > 1 else blob[None]
     if got is None:
         return None
     blobs = got.cpu().numpy()
-    b_loc, s_loc = -(-B // mesh.n_pos), -(-S // mesh.n_row)
+    b_loc, s_loc = -(-B // n_pos), -(-S // n_row)
     res = {}
     for k in keys:
         v = out[k]
         shape = tuple(v.shape)
         if k in _PER_SAMPLE:
-            shape = (b_loc * mesh.n_pos, s_loc * mesh.n_row) + shape[2:]
+            shape = (b_loc * n_pos, s_loc * n_row) + shape[2:]
         elif k.startswith("info_"):
-            shape = (shape[0], b_loc * mesh.n_pos)
+            shape = (shape[0], b_loc * n_pos)
         else:
-            shape = (b_loc * mesh.n_pos,)
+            shape = (b_loc * n_pos,)
         res[k] = np.empty(shape, _np_dtype(v.dtype))
-    for r in range(mesh.size):
-        pos, row = divmod(r, mesh.n_row)
+    for r in range(size):
+        pos, row = divmod(r, n_row)
         bs = slice(pos * b_loc, (pos + 1) * b_loc)
         off = 0
         for k, p in zip(keys, parts):
@@ -354,3 +527,22 @@ def gather_outputs(mesh: Mesh, out: Dict[str, torch.Tensor], B: int,
         res[k] = a[:B, :S] if k in _PER_SAMPLE else \
             a[:, :B] if k.startswith("info_") else a[:B]
     return res
+
+
+def gather_rows(mesh: Mesh, out: Dict[str, torch.Tensor], B: int,
+                S: int) -> Optional[Dict[str, np.ndarray]]:
+    """The row group's shards of one block's outputs, assembled on its
+    row-0 rank and trimmed to B records x S samples (the unsharded
+    combine's layout); None on the other ranks.  A row group of one
+    fetches its outputs and moves nothing."""
+    return _assemble(out, mesh.row_group, mesh.n_row, 1, mesh.n_row, B, S)
+
+
+def gather_outputs(mesh: Mesh, out: Dict[str, torch.Tensor], B: int,
+                   S: int) -> Optional[Dict[str, np.ndarray]]:
+    """Every shard's outputs of one whole block (`shard_block`),
+    assembled on the mesh's first rank and trimmed to the block's B
+    records x S samples (the JAX mesh branch's layout: [B, S, ...]
+    per-sample outputs, [F, B] INFO reductions, [B] DP sum); None on the
+    other ranks.  A mesh of one rank moves nothing."""
+    return _assemble(out, None, mesh.size, mesh.n_pos, mesh.n_row, B, S)

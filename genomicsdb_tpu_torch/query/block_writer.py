@@ -21,10 +21,14 @@ pinned host memory starts before the previous chunk renders, and the
 host widens it and rebuilds the ref-block rows (the native
 `identity_outputs`).  With `pack` off (the default on the CPU device)
 every output is fetched whole with `.cpu().numpy()`.  The mesh branch
-(`mesh=`, `gdb_query --mesh`) combines each rank's shard of the block
-(`parallel.sharded`: the CUDA kernel per shard in its wide form, the
-cross-sample reductions over the mesh's row group) and the first rank
-gathers, trims and renders, as the JAX mesh branch does.  Two JAX
+(`mesh=`, `gdb_query --mesh`) renders one pos span of each chunk per
+pos group: the group's row-0 rank alone builds the span's block and
+sends each rank of the group its samples' rows of the block; each rank
+combines its shard (`parallel.sharded`: the CUDA kernel per shard in
+its wide form, the cross-sample reductions over the row group, as the
+JAX mesh branch does); the row-0 rank gathers its group's outputs and
+renders the span, and the mesh's first rank collects the spans' texts
+in pos order.  Two JAX
 writer branches are left out on purpose: the dense-gather branch
 (`GENOMICSDB_TPU_DENSE=1`, for a TPU behind a PCIe host; on an H100 the
 kernel path is the faster one) and the CPU-device `remap_rows`
@@ -42,14 +46,16 @@ import numpy as np
 
 from ..core import formats
 from ..core import known_fields as kf
-from ..core.config import QueryConfig
+from ..core.config import INT64_MAX, QueryConfig
 from ..core.vid import VidMapper
 from ..ops.combine_step import (fetch_outputs, fetch_outputs_split,
-                                host_identity_outputs, pack_outputs)
-from ..ops.fused_combine import combine_block
-from ..ops.store_block import store_to_block
+                                host_identity_outputs, pack_outputs,
+                                per_block_arrays)
+from ..ops.fused_combine import combine_block, kernel_takes_shape
+from ..ops.store_block import _block_ploidy, store_to_block
 from ..runtime import native_loader
 from ..store.columnar import ColumnarStore
+from .block_fields import build_block_plan
 from .vcf_writer import elem_sum_1d_core, elem_sum_2d_core, hist_sum_core
 
 INT_MISSING = formats.INT_MISSING
@@ -75,20 +81,114 @@ def _fmt_elem(x, is_float: bool) -> str:
     return str(x)
 
 
-def _mesh_device_section(mesh, blk, max_merged, ploidy, gt_phase,
-                         mixed_ploidy):
-    """The JAX writer's mesh branch: this rank's shard of the block is
-    combined (`sharded.mesh_combine`: the CUDA kernel per shard, wide,
-    with the reductions over the mesh's row group), then, after the
-    pipeline's yield, the first rank gathers and trims every shard's
-    outputs.  No med_rows restriction and no pack, as in the JAX mesh
-    branch.  Returns (host outputs or None off the first rank, live)."""
-    from ..parallel.sharded import gather_outputs, mesh_combine
-    out = mesh_combine(mesh, blk, max_merged=max_merged, ploidy=ploidy,
-                       gt_phase=gt_phase, mixed_ploidy=mixed_ploidy)
-    live = np.asarray(blk.live)
+def _mesh_device_section(mesh, store, qc, blk, *, B_empty, max_merged,
+                         ploidy, pad_cells_to):
+    """The combine of one span on the mesh (a generator: it yields once,
+    between the launch and the gather).  The row group's row-0 rank
+    holds the span's block `blk` (None for a span without records: then
+    B_empty padded records with no live cell stand in); it scatters
+    each rank of its row group that rank's sample rows of the per-block
+    arrays (`sharded.scatter_rows`).  Every rank combines its shard on
+    its own device (`sharded.combine_shard`: the CUDA kernel, wide, with
+    the reductions over the row group; no med_rows restriction and no
+    pack, as in the JAX mesh branch), and after the pipeline's yield the
+    row-0 rank gathers its row group's outputs (`sharded.gather_rows`).
+    Returns (host outputs or None off row 0, the block's mixed-ploidy
+    flag)."""
+    from ..parallel import sharded as TS
+    S = len(qc.rows_to_query)
+    plan = build_block_plan(qc, qc.vid)
+    ploidy = _block_ploidy(store, qc, ploidy)
+    slabs = TS.local_slabs(mesh, store, qc, plan,
+                           2 * ploidy - 1 if plan.gt_phase else ploidy,
+                           pad_cells_to)
+    header = rows = None
+    if mesh.row == 0:
+        if blk is not None:
+            ploidy, max_merged, mixed = _block_flags(blk)
+            rows = per_block_arrays(blk)
+        else:
+            mixed = False
+            rows = TS.empty_rows(B_empty, S, max_merged)
+        B = len(rows[2])
+        header = TS.RowsHeader(B, max_merged, ploidy, plan.gt_phase, mixed,
+                               kernel_takes_shape(B, S, max_merged, ploidy))
+    header, local = TS.scatter_rows(mesh, header, rows, S)
+    out = TS.combine_shard(mesh, slabs + local, fused=header.fused,
+                           max_merged=header.max_merged,
+                           ploidy=header.ploidy, gt_phase=header.gt_phase,
+                           mixed_ploidy=header.mixed_ploidy)
     yield
-    return gather_outputs(mesh, out, *live.shape), live
+    return TS.gather_rows(mesh, out, header.B, S), header.mixed_ploidy
+
+
+def _render_mesh_span(mesh, store, qc, vid, interval, *, max_merged,
+                      ploidy, pad_records, pad_cells_to, render_kw):
+    """render_block_vcf_pipelined on a mesh: this rank's part of one
+    chunk, whose pos span is `interval` (None: no record)."""
+    blk = meta = None
+    if mesh.row == 0 and interval is not None:
+        blk, meta = _build_block(store, qc, interval, max_merged, ploidy,
+                                 pad_records, pad_cells_to)
+        render_block_vcf_pipelined.built_spans.append(
+            [int(interval[0]), int(interval[1])])
+    dev, mixed = yield from _mesh_device_section(
+        mesh, store, qc, blk, B_empty=pad_records or 1,
+        max_merged=max_merged, ploidy=ploidy, pad_cells_to=pad_cells_to)
+    if mesh.row != 0:       # its row-0 rank renders the span
+        yield []
+        return
+    lines = []
+    if blk is not None:
+        lines = _render_lines(store, qc, vid, interval, blk, meta, dev,
+                              np.asarray(blk.live), None, ploidy=blk.ploidy,
+                              mixed_ploidy=mixed, **render_kw)
+    text = "".join(ln + "\n" for ln in lines).encode()
+    render_block_vcf_pipelined.text_bytes += len(text)
+    if mesh.pos_group is None:      # one pos group: its span is the chunk
+        yield lines
+        return
+    from ..parallel.multihost import gather_blobs_to_root
+    pieces = gather_blobs_to_root(text, mesh.pos_group, mesh.wire)
+    if pieces is None:      # the mesh's first rank writes the chunk
+        yield []
+        return
+    lines = []
+    for piece in pieces:
+        if piece:
+            t = piece.decode()[:-1]
+            if render_kw["coalesce"]:
+                lines.append(t)
+            else:
+                lines.extend(t.split("\n"))
+    yield lines
+
+
+def _build_block(store, qc, interval, max_merged, ploidy, pad_records,
+                 pad_cells_to):
+    """store_to_block with its meta, counted in render_block_vcf_pipelined.
+    blocks_built and .records_built (padding excluded)."""
+    blk, meta = store_to_block(store, qc, interval=interval,
+                               max_merged=max_merged, ploidy=ploidy,
+                               return_meta=True, pad_records=pad_records,
+                               pad_cells_to=pad_cells_to)
+    render_block_vcf_pipelined.blocks_built += 1
+    # store_to_block starts padded records at INT64_MAX - 1, past every
+    # column a query reaches
+    render_block_vcf_pipelined.records_built += int(
+        np.count_nonzero(blk.starts < INT64_MAX - 1))
+    return blk, meta
+
+
+def _block_flags(blk):
+    """(ploidy, max_merged, mixed_ploidy) of a built block: the cohort's
+    max ploidy, the LUT width after any allele-merge growth, and whether
+    any live call has a GT length other than the block's width."""
+    gt_w = blk.gt.shape[2]
+    mixed = bool(blk.gt_len_bs is not None
+                 and not (((blk.gt_len_bs == gt_w)
+                           | (blk.live < 0)).all()))
+    return blk.ploidy, blk.inv_bs.shape[2], mixed
 
 
 def _device_section(blk, meta, device, pack, max_merged, ploidy, gt_phase,
@@ -193,37 +293,59 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
     whose fetch took the variant-row split in
     `render_block_vcf_pipelined.split_blocks`.
 
-    `mesh` (a `parallel.sharded.Mesh`): the combine runs sharded over
-    the mesh's rank processes, each on its own device (`device` is not
-    used), and only the mesh's first rank renders: the others return no
-    lines.  Every rank must walk the same blocks in the same order.  The
-    fetch is whole (no pack) and the INFO reductions cover every row.
+    `mesh` (a `parallel.sharded.Mesh`): `interval` is this rank's pos
+    span of a chunk (None: a span without records), padded to
+    `pad_records`.  Only the row-0 rank of the pos group builds the
+    span's block; the combine runs sharded over the group's ranks, each
+    on its own device (`device` is not used); the row-0 rank renders the
+    span and the mesh's first rank collects every pos group's text in
+    pos order: the second next() returns the chunk's lines there, none
+    on the other ranks.  Every rank must walk the same chunks in the
+    same order.  The fetch is whole (no pack) and the INFO reductions
+    cover every row.  Counts the blocks this process built, their
+    records (padding excluded) and, on a mesh, the spans built
+    ([lo, hi] columns) and the bytes of the text rendered in
+    `render_block_vcf_pipelined.{blocks_built,records_built,built_spans,
+    text_bytes}`.
 
     `sequential_fn(lo, hi) -> List[str]`: maximal runs of records the
     plan cannot realize are rendered by the sequential engine over
     [lo, hi] and spliced in."""
-    blk, meta = store_to_block(store, qc, interval=interval,
-                               max_merged=max_merged, ploidy=ploidy,
-                               return_meta=True, pad_records=pad_records,
-                               pad_cells_to=pad_cells_to)
-    plan = meta.plan
-    ploidy = blk.ploidy          # block is sized to the cohort max
-    max_merged = blk.inv_bs.shape[2]   # after any allele-merge growth
-    gt_w = blk.gt.shape[2]
-    mixed_ploidy = bool(blk.gt_len_bs is not None
-                        and not (((blk.gt_len_bs == gt_w)
-                                  | (blk.live < 0)).all()))
+    render_kw = dict(ref_genome=ref_genome, sequential_fn=sequential_fn,
+                     filter_name_by_field_idx=filter_name_by_field_idx,
+                     coalesce=coalesce)
     if mesh is not None:
-        dev, live = yield from _mesh_device_section(
-            mesh, blk, max_merged, ploidy, plan.gt_phase, mixed_ploidy)
-        if dev is None:         # not the mesh's first rank: no text
-            yield []
-            return
-        med_rows_p = None
-    else:
-        dev, live, med_rows_p = yield from _device_section(
-            blk, meta, device, pack, max_merged, ploidy, plan.gt_phase,
-            mixed_ploidy)
+        yield from _render_mesh_span(
+            mesh, store, qc, vid, interval, max_merged=max_merged,
+            ploidy=ploidy, pad_records=pad_records,
+            pad_cells_to=pad_cells_to, render_kw=render_kw)
+        return
+    blk, meta = _build_block(store, qc, interval, max_merged, ploidy,
+                             pad_records, pad_cells_to)
+    ploidy, max_merged, mixed_ploidy = _block_flags(blk)
+    dev, live, med_rows_p = yield from _device_section(
+        blk, meta, device, pack, max_merged, ploidy, meta.plan.gt_phase,
+        mixed_ploidy)
+    yield _render_lines(store, qc, vid, interval, blk, meta, dev, live,
+                        med_rows_p, ploidy=ploidy, mixed_ploidy=mixed_ploidy,
+                        **render_kw)
+
+
+render_block_vcf_pipelined.split_blocks = 0
+render_block_vcf_pipelined.blocks_built = 0
+render_block_vcf_pipelined.records_built = 0
+render_block_vcf_pipelined.built_spans = []
+render_block_vcf_pipelined.text_bytes = 0
+
+
+def _render_lines(store, qc, vid, interval, blk, meta, dev, live,
+                  med_rows_p, *, ploidy, mixed_ploidy, ref_genome,
+                  sequential_fn, filter_name_by_field_idx,
+                  coalesce) -> List[str]:
+    """The text lines of one combined block: the host render of the
+    block's records from its host outputs `dev` (INFO reductions
+    restricted to the padded `med_rows_p` rows when given)."""
+    plan = meta.plan
     B, S = live.shape
     if med_rows_p is not None:
         # scatter the row-restricted INFO reductions back to full
@@ -386,8 +508,7 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
         for item in (plan_items or []):
             if item[0] != "block":
                 lines.extend(sequential_fn(item[1], item[2]))
-        yield lines
-        return
+        return lines
     bs_arr = np.asarray(block_bs, dtype=np.int64)
     # per-record FORMAT signature codes (vectorized bit-pack)
     sig_codes = np.zeros(nb, dtype=np.int64)
@@ -509,8 +630,7 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
                 lines.append(blob.decode()[:-1])
             else:
                 lines.extend(blob.decode()[:-1].split("\n"))
-            yield lines
-            return
+            return lines
         pos_of_b = {int(b): i for i, b in enumerate(block_bs)}
         run_start = run_end = -1
         for item in plan_items:
@@ -528,13 +648,11 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
         if run_start >= 0:
             lines.extend(blob[offs[run_start]:offs[run_end + 1]]
                          .decode()[:-1].split("\n"))
-        yield lines
-        return
+        return lines
     # python fallback produced a per-record list
     if plan_items is None:
         lines.extend(block_lines_text)
-        yield lines
-        return
+        return lines
     block_lines = {int(b): block_lines_text[i]
                    for i, b in enumerate(block_bs)}
     for item in plan_items:
@@ -542,10 +660,7 @@ def render_block_vcf_pipelined(store: ColumnarStore, qc: QueryConfig,
             lines.append(block_lines[item[1]])
         else:
             lines.extend(sequential_fn(item[1], item[2]))
-    yield lines
-
-
-render_block_vcf_pipelined.split_blocks = 0
+    return lines
 
 
 def _strs_to_col(strings: List, dot_is_empty: bool = False):

@@ -277,7 +277,7 @@ def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
         max_records_per_block = min(max_records_per_block,
                                     max(1024, (1 << 18) // S_w))
     if len(starts) <= max_records_per_block:
-        chunks = [iv]
+        chunks = [(iv, 0, len(starts))]
         # bucket-pad small blocks to power-of-two record counts (and
         # coarse cell counts), as the JAX driver does; padding leaves
         # the output unchanged
@@ -293,25 +293,47 @@ def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
             lo = int(starts[i])
             j = i + max_records_per_block
             hi = int(starts[j]) - 1 if j < len(starts) else int(iv[1])
-            chunks.append((lo, hi))
+            chunks.append(((lo, hi), i, min(j, len(starts))))
         pad_kw = {"pad_records": max_records_per_block,
                   "pad_cells_to": 256}
     # software pipeline: launch chunk k+1's device combine before
     # rendering chunk k's text, so the device computes while the host
     # formats
     pending = None
-    for civ in chunks:
+    for civ, i, j in chunks:
+        kw = pad_kw
+        if mesh is not None:
+            civ, kw = _mesh_span(mesh, starts, civ, i, j, pad_kw)
         g = render_block_vcf_pipelined(
             store, qc, vid, civ, device, ref_genome=ref_genome,
             max_merged=max_merged, sequential_fn=make_seq_fn(),
             filter_name_by_field_idx=filter_names, coalesce=coalesce,
-            pack=pack, mesh=mesh, **pad_kw)
+            pack=pack, mesh=mesh, **kw)
         next(g)
         if pending is not None:
             yield from next(pending)
         pending = g
     if pending is not None:
         yield from next(pending)
+
+
+def _mesh_span(mesh, starts, civ, i: int, j: int, pad_kw: dict):
+    """(interval, padding) of this rank's pos span of the chunk `civ`,
+    which holds records i..j-1 of `starts`: the pos group's span of
+    those records (`sharded.pos_span`), as the sub-interval from
+    its first record's start to the next span's start - 1 (the chunk's
+    end for the last span), so it yields exactly its records, as a chunk
+    does; None for a span without records.  Each span is padded to the
+    chunk's padded record count / n_pos."""
+    from ..parallel.sharded import pos_span
+    lo, hi = pos_span(j - i, mesh)
+    kw = dict(pad_kw)
+    if "pad_records" in kw:
+        kw["pad_records"] = -(-kw["pad_records"] // mesh.n_pos)
+    if lo == hi:
+        return None, kw
+    end = int(starts[i + hi]) - 1 if i + hi < j else int(civ[1])
+    return (int(starts[i + lo]), end), kw
 
 
 def run_vcf_query_paged(store, qc: QueryConfig, qp: QueryParams,

@@ -28,15 +28,18 @@ Distribution, as in the JAX tool:
                     (d = cuda:(i % cards) on a CUDA device), their
                     outputs gathered in rank order by this process (the
                     reference's MPI model)
-  --mesh PxR        the block engine's combine sharded over a
-                    ("pos", "row") mesh of P*R rank processes
-                    (`parallel.sharded`); this process spawns them, or,
-                    started by a launcher (torchrun) with a world of P*R
-                    ranks, is one of them.  The mesh's first rank writes
-                    the output; the backend follows the layout (NCCL
-                    with a card per rank, gloo when ranks share a card
-                    or run on the CPU).  The text equals the unsharded
-                    query's.
+  --mesh PxR        the block engine over a ("pos", "row") mesh of P*R
+                    rank processes (`parallel.sharded`); this process
+                    spawns them, or, started by a launcher (torchrun)
+                    with a world of P*R ranks, is one of them.  Pos
+                    group p takes span p of each chunk's records: its
+                    row-0 rank alone builds the span's block, sends each
+                    rank of the group its samples' rows, and renders the
+                    span's text after the group's combine; the mesh's
+                    first rank writes the pos groups' texts in order.
+                    The backend follows the layout (NCCL with a card per
+                    rank, gloo when ranks share a card or run on the
+                    CPU).  The text equals the unsharded query's.
 
 A rank that fails fails the whole query, with its stderr.
 """
@@ -48,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -347,6 +351,21 @@ def child_env(**extra) -> dict:
                                                if path else ""), **extra)
 
 
+def rank_env(rank: int, world: int, port: int) -> dict:
+    """child_env for rank `rank` of `world` rank processes on this host:
+    the launcher's variables (RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and, unless this
+    process's environment sets it, OMP_NUM_THREADS = this host's cores /
+    world, so the ranks' host threads share the cores instead of each
+    spinning on all of them (torchrun sets it too)."""
+    threads = os.environ.get("OMP_NUM_THREADS") or str(
+        max(1, len(os.sched_getaffinity(0)) // world))
+    return child_env(RANK=str(rank), WORLD_SIZE=str(world),
+                     LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                     OMP_NUM_THREADS=threads)
+
+
 def _drain(stream, sink: list) -> threading.Thread:
     t = threading.Thread(target=lambda: sink.append(stream.read()),
                          daemon=True)
@@ -405,43 +424,44 @@ def free_port() -> int:
 def spawn_mesh(raw_argv, world: int,
                module: str = "genomicsdb_tpu_torch.tools.gdb_query") -> str:
     """Run `python -m <module> <raw_argv>` as `world` mesh rank processes
-    on this host (the launcher's environment: RANK, WORLD_SIZE,
-    LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and return
+    on this host (the launcher's environment, `rank_env`) and return
     the first rank's stdout.  The ranks' stderr follows on this
     process's stderr; each rank's report line is also parsed into
     `spawn_mesh.rank_reports`.  A rank that exits non-zero ends the
-    others and fails the run with its stderr."""
+    others and fails the run with its stderr.  The first rank writes its
+    stdout to a temporary file, read once it has exited: through a pipe,
+    the tail of a large text was seen to be lost with every rank
+    exiting 0."""
     port = free_port()
-    procs, outs, errs, threads = [], [], [], []
-    try:
-        for r in range(world):
-            env = child_env(RANK=str(r), WORLD_SIZE=str(world),
-                            LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
-                            MASTER_ADDR="localhost", MASTER_PORT=str(port))
-            pr = subprocess.Popen(
-                [sys.executable, "-m", module, *raw_argv],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
-            procs.append(pr)
-            outs.append([])
-            errs.append([])
-            threads += [_drain(pr.stdout, outs[-1]),
-                        _drain(pr.stderr, errs[-1])]
-        failed = None
-        while failed is None and any(p.poll() is None for p in procs):
-            failed = next((r for r, p in enumerate(procs)
-                           if p.poll() not in (None, 0)), None)
-            time.sleep(0.05)
-        if failed is None:
-            failed = next((r for r, p in enumerate(procs)
-                           if p.returncode != 0), None)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for p in procs:
-            p.wait()
-        for t in threads:
-            t.join()
+    procs, errs, threads = [], [], []
+    with tempfile.TemporaryFile() as out:
+        try:
+            for r in range(world):
+                pr = subprocess.Popen(
+                    [sys.executable, "-m", module, *raw_argv],
+                    stdout=out if r == 0 else subprocess.DEVNULL,
+                    stderr=subprocess.PIPE, env=rank_env(r, world, port))
+                procs.append(pr)
+                errs.append([])
+                threads.append(_drain(pr.stderr, errs[-1]))
+            failed = None
+            while failed is None and any(p.poll() is None for p in procs):
+                failed = next((r for r, p in enumerate(procs)
+                               if p.poll() not in (None, 0)), None)
+                time.sleep(0.05)
+            if failed is None:
+                failed = next((r for r, p in enumerate(procs)
+                               if p.returncode != 0), None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in procs:
+                p.wait()
+            for t in threads:
+                t.join()
+        out.seek(0)
+        stdout = out.read().decode()
     text = [b"".join(e).decode(errors="replace") for e in errs]
     if failed is not None:
         raise SystemExit(f"{module}: mesh rank {failed} exited "
@@ -454,7 +474,7 @@ def spawn_mesh(raw_argv, world: int,
                 reports.append(json.loads(line[len(REPORT):]))
             print(line, file=sys.stderr)
     spawn_mesh.rank_reports = sorted(reports, key=lambda d: d["rank"])
-    return b"".join(outs[0]).decode()
+    return stdout
 
 
 spawn_mesh.rank_reports = []
@@ -464,11 +484,18 @@ def _mesh_pieces(args, device, n_pos: int, n_row: int):
     """This process as one rank of the mesh: its pieces of the output
     (the header alone off the first rank), whether it is the first rank,
     and a report line on stderr: its counts, the seconds it took to join
-    the mesh (`mesh_s`) and to run its query (`query_s`)."""
+    the mesh (`mesh_s`) and to run its query (`query_s`).  The counts:
+    blocks combined (`blocks`, `general_path_blocks`), kernel launches,
+    row-group all-gathers and their bytes, the blocks and records this
+    rank built (`blocks_built`, `records_built`, padding excluded; the
+    spans' [lo, hi] columns in `built_spans`), the bytes it sent or
+    received in the row group's block-row scatter (`lut_scatter_bytes`)
+    and the bytes of the span text it rendered (`text_bytes`)."""
     import torch.distributed as dist
     from ..ops import fused_combine as FC
     from ..parallel import comm
-    from ..parallel.sharded import make_mesh, mesh_combine
+    from ..parallel.sharded import make_mesh, mesh_combine, scatter_rows
+    from ..query.block_writer import render_block_vcf_pipelined as RB
     owned = not dist.is_initialized()
     t0 = time.perf_counter()
     mesh = make_mesh(n_pos, n_row, device)
@@ -484,7 +511,12 @@ def _mesh_pieces(args, device, n_pos: int, n_row: int):
             "general_path_blocks": mesh_combine.general_path_blocks,
             "launches": FC.fused_gather_remap.launches,
             "all_gathers": comm.all_gather.calls,
-            "all_gather_bytes": comm.all_gather.bytes}
+            "all_gather_bytes": comm.all_gather.bytes,
+            "blocks_built": RB.blocks_built,
+            "records_built": RB.records_built,
+            "built_spans": RB.built_spans,
+            "lut_scatter_bytes": scatter_rows.bytes,
+            "text_bytes": RB.text_bytes}
     finally:
         # the DeviceMesh's groups go before the process group: a group
         # that outlives destroy_process_group aborts the interpreter's

@@ -256,8 +256,9 @@ def test_socket_server_on_the_card(cuda, tmp_path):
 def test_mesh_on_the_card(cuda, tmp_path, shape):
     """`gdb_query --mesh` on the card: 1x1 on NCCL (a card per rank),
     2x1 on gloo where the ranks share a card; every rank launched the
-    CUDA kernel for every block, and the text equals the unsharded
-    query's on the CPU."""
+    CUDA kernel for every block, built its own pos span and ran no
+    all-gather (its row group is itself), and the text equals the
+    unsharded query's on the CPU."""
     from genomicsdb_tpu_torch.testing import write_cohort
     from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
     c = write_cohort(str(tmp_path), 40, 300, seed=2)
@@ -280,6 +281,8 @@ def test_mesh_on_the_card(cuda, tmp_path, shape):
         assert r["device"].startswith("cuda:")
         assert r["launches"] == r["blocks"] > 0
         assert r["general_path_blocks"] == 0
+        assert r["blocks_built"] == r["blocks"] and r["records_built"] > 0
+        assert r["all_gathers"] == 0
 
 
 def _outputs_equal(a, b):

@@ -81,7 +81,8 @@ torch.distributed.destroy_process_group()
 
 
 def run_ranks(script, argv, world, timeout=TIMEOUT_S):
-    """Runs `script argv` as `world` gloo ranks on this host; every rank
+    """Runs `script argv` as `world` gloo ranks on this host (the
+    environment `gdb_query --mesh` gives its ranks); every rank
     must exit 0 within `timeout` seconds of the start (all are killed
     otherwise).  Returns their stdouts."""
     port = gdb_query.free_port()
@@ -89,10 +90,9 @@ def run_ranks(script, argv, world, timeout=TIMEOUT_S):
     deadline = time.monotonic() + timeout
     try:
         for r in range(world):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
             procs.append(subprocess.Popen(
-                [sys.executable, str(script), *argv], env=env, text=True,
+                [sys.executable, str(script), *argv],
+                env=gdb_query.rank_env(r, world, port), text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE))
         outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))
                 for p in procs]
@@ -274,22 +274,148 @@ def run_tool(argv, timeout=TIMEOUT_S):
     return out, sorted(reports, key=lambda r: r["rank"])
 
 
-def test_gdb_query_mesh_matches_unsharded_and_the_jax_tool(cohort):
-    """`gdb_query --mesh 2x2 --device cpu` (four spawned gloo ranks)
-    gives the port's unsharded text and the JAX tool's `--mesh 2x2`
-    text; every rank combined every block on its shard."""
-    argv = ["-j", cohort.query, "--produce-Broad-GVCF"]
-    want = _run(gdb_query.main, argv + ["--device", "cpu"])
-    got, reports = run_tool(argv + ["--device", "cpu", "--mesh", "2x2"])
-    assert want.count("\n") > 100
+CHUNK_SAMPLES, CHUNK_RECORDS = 256, 700
+# the chunked cohort's query: a first interval of two chunks (at 256
+# samples a chunk holds 1,024 records), an interval whose first pos span
+# edge falls inside a deletion, and one of a single record (fewer than
+# the pos groups)
+FIRST_RECORDS, EDGE_SPAN, SINGLE_AT = 1100, 40, 1800
+
+
+def _events_and_deletion_starts(c):
+    """(the cohort's record starts, [E] bool: the start lies inside a
+    deletion that begins before it), by the port's own store reader."""
+    from genomicsdb_tpu_torch.core.config import QueryParams
+    from genomicsdb_tpu_torch.ops.store_block import record_starts
+    from genomicsdb_tpu_torch.query import driver
+    from genomicsdb_tpu_torch.store import workspace as ws
+    qp = QueryParams.from_file(c.query, 0)
+    qc = driver.make_query_config(qp, driver.load_vid_for_query(qp, None))
+    store = ws.open_array(c.workspace, c.array)
+    starts = record_starts(store, qc, (0, c.region))
+    lens = store.fields["REF"].lens()
+    dels = lens > 1
+    inside = np.zeros(len(starts), dtype=bool)
+    for col, n in zip(store.col[dels], lens[dels]):
+        inside[np.searchsorted(starts, col, side="right"):
+               np.searchsorted(starts, col + n - 1, side="right")] = True
+    return starts, inside
+
+
+@pytest.fixture(scope="module")
+def chunked(tmp_path_factory):
+    """A cohort of several chunks, its records' starts and, per pos-group
+    count P, a query of three intervals (see FIRST_RECORDS) with the
+    port's unsharded text of it and the records that run built."""
+    from genomicsdb_tpu_torch.query.block_writer import (
+        render_block_vcf_pipelined as RB)
+    d = str(tmp_path_factory.mktemp("chunked"))
+    c = write_cohort(d, CHUNK_SAMPLES, CHUNK_RECORDS, seed=8)
+    vcf2gdb.main([c.loader])
+    starts, inside = _events_and_deletion_starts(c)
+    # the first deletion-internal start far enough past the first
+    # interval to open a span edge there for every P
+    edge = next(i for i in np.nonzero(inside)[0]
+                if i - EDGE_SPAN > FIRST_RECORDS)
+    with open(c.query) as f:
+        doc = json.load(f)
+    queries = {}
+    for n_pos in (1, 2, 3):
+        lo = edge - EDGE_SPAN        # records lo.. lo + n_pos * EDGE_SPAN
+        hi = lo + n_pos * EDGE_SPAN
+        assert hi < SINGLE_AT < len(starts) - 1
+        ranges = [(0, starts[FIRST_RECORDS] - 1),
+                  (starts[lo], starts[hi] - 1),
+                  (starts[SINGLE_AT], starts[SINGLE_AT + 1] - 1)]
+        doc["query_column_ranges"] = [{"range_list": [
+            {"low": int(a), "high": int(b)} for a, b in ranges]}]
+        query = os.path.join(d, f"query_p{n_pos}.json")
+        with open(query, "w") as f:
+            json.dump(doc, f)
+        before = RB.records_built
+        text = _run(gdb_query.main, ["-j", query, "--produce-Broad-GVCF",
+                                     "--device", "cpu"])
+        queries[n_pos] = (query, text, RB.records_built - before)
+    return starts, queries
+
+
+def _expected_spans(starts, query, n_pos, n_samples):
+    """(per pos group, the [lo, hi] column spans it must build; the
+    chunk count): each interval cut into chunks of the driver's record
+    cap, each chunk's records split into n_pos spans of
+    ceil(n / n_pos)."""
+    cap = min(65536, max(1024, (1 << 18) // n_samples))
+    with open(query) as f:
+        ranges = json.load(f)["query_column_ranges"][0]["range_list"]
+    spans = [[] for _ in range(n_pos)]
+    chunks = 0
+    for r in ranges:
+        ev = starts[(starts >= r["low"]) & (starts <= r["high"])]
+        assert ev[0] == r["low"]
+        for i in range(0, len(ev), cap):
+            chunk = ev[i:i + cap]
+            chunks += 1
+            end = ev[i + cap] - 1 if i + cap < len(ev) else r["high"]
+            per = -(-len(chunk) // n_pos)
+            for p in range(n_pos):
+                part = chunk[p * per:(p + 1) * per]
+                if len(part):
+                    nxt = chunk[(p + 1) * per] - 1 \
+                        if (p + 1) * per < len(chunk) else end
+                    spans[p].append([int(part[0]), int(nxt)])
+    return spans, chunks
+
+
+# 1x3 and 2x3 split the 256 samples unevenly: the last row rank's
+# shard holds padded samples
+@pytest.mark.parametrize("n_pos,n_row", [(1, 1), (2, 1), (1, 2), (2, 2),
+                                         (3, 1), (1, 3), (2, 3)])
+def test_gdb_query_mesh_matches_unsharded_and_the_jax_tool(
+        chunked, n_pos, n_row):
+    """`gdb_query --mesh PxR --device cpu` (P*R spawned gloo ranks) on a
+    query of several chunks, a span edge inside a deletion and a chunk
+    of fewer records than P gives the port's unsharded text (and, on
+    2x2, the JAX tool's `--mesh 2x2` text).  Each record is built once
+    across the mesh: pos group p's row-0 rank builds exactly span p of
+    every chunk, the other ranks build nothing, and a row group of one
+    runs no all-gather."""
+    starts, queries = chunked
+    query, want, records = queries[n_pos]
+    argv = ["-j", query, "--produce-Broad-GVCF"]
+    got, reports = run_tool(argv + ["--device", "cpu", "--mesh",
+                                    f"{n_pos}x{n_row}"])
+    assert want.count("\n") > FIRST_RECORDS
     assert got == want
     assert [(r["rank"], r["pos"], r["row"], r["backend"])
-            for r in reports] == [(0, 0, 0, "gloo"), (1, 0, 1, "gloo"),
-                                  (2, 1, 0, "gloo"), (3, 1, 1, "gloo")]
-    assert len({r["blocks"] for r in reports}) == 1
-    assert all(r["blocks"] > 0 and r["general_path_blocks"] == 0
-               and r["all_gathers"] == r["blocks"] for r in reports)
-    assert got == _run(jax_gdb_query.main, argv + ["--mesh", "2x2"])
+            for r in reports] == [(k, *divmod(k, n_row), "gloo")
+                                  for k in range(n_pos * n_row)]
+    assert sum(r["records_built"] for r in reports) == records
+    spans, chunks = _expected_spans(starts, query, n_pos, CHUNK_SAMPLES)
+    # two chunks, the deletion-edge interval and the single record:
+    # every pos group but the first has a span without records
+    assert chunks == 4
+    assert [len(s) for s in spans] == [4] + [3] * (n_pos - 1)
+    for r in reports:
+        # one block combined per chunk: a span without records is
+        # padding that takes part all the same
+        assert r["blocks"] == chunks and r["general_path_blocks"] == 0
+        if r["row"]:
+            assert (r["records_built"], r["blocks_built"],
+                    r["built_spans"], r["text_bytes"]) == (0, 0, [], 0)
+        else:
+            assert r["built_spans"] == spans[r["pos"]]
+            assert r["blocks_built"] == len(spans[r["pos"]])
+        if n_row == 1:
+            assert (r["all_gathers"], r["all_gather_bytes"],
+                    r["lut_scatter_bytes"]) == (0, 0, 0)
+        else:
+            assert r["all_gathers"] == r["blocks"]
+            assert r["lut_scatter_bytes"] > 0
+    assert sum(r["text_bytes"] for r in reports) == len(
+        want.encode()) - len("".join(
+            ln + "\n" for ln in want.splitlines() if ln.startswith("#")))
+    if (n_pos, n_row) == (2, 2):
+        assert got == _run(jax_gdb_query.main, argv + ["--mesh", "2x2"])
 
 
 def test_gdb_query_mesh_failures(cohort, monkeypatch):
