@@ -59,10 +59,13 @@ Every phase passes or the script exits non-zero:
      65536` on cuda must give phase 3's text, and `gdb_query --ooc -s
      <a quarter of the store>` must too, over more than one window and
      with a lower device-memory high-water mark than the in-RAM query.
-  6. Distribution: `gdb_query --mesh 1x1 --device cuda` (one rank
-     process, NCCL), `--mesh 2x1` and `--mesh 2x2` (two and four rank
-     processes sharing cuda:0 on gloo) must give phase 3's text byte for
-     byte; every rank must have launched the CUDA kernel once per chunk,
+  6. Distribution, over the first half of the cohort's columns (half
+     phase 3's depth; the unsharded query's records but its last, which
+     the half clips, must be phase 3's): `gdb_query --mesh 1x1 --device
+     cuda` (one rank process, NCCL), `--mesh 2x1` and `--mesh 2x2` (two
+     and four rank processes sharing cuda:0 on gloo) must give the
+     unsharded query's text byte for byte; every rank must have launched
+     the CUDA kernel once per chunk,
      the records the ranks built must sum to the unsharded query's (each
      built once across the mesh: only row-0 ranks build), and a row
      group of one must run no all-gather.  Each rank's counts are
@@ -110,6 +113,26 @@ Every phase passes or the script exits non-zero:
      the narrow kernel), the sharded demo as its 8 rank processes on
      the card (gloo), whose gathered block must equal the unsharded
      `combine_step` on cuda:0.  Their launches join the kernel JSON.
+  9. The routes past diploid bi-allelic data: a route cohort at the full
+     width (`write_cohort(1000, 1200, seed=2, haploid_stretch=True,
+     phased_share=0.3, hotspots=12)`: haploid calls of the odd samples
+     in the middle third, a share of phased calls, hotspots merging past
+     16 alleles in the last third) is imported and queried on cuda with
+     the pack on (cold, warm) and off, on `--device cpu` and on `--mesh
+     2x1`; the texts must be byte-identical, and the counted queries
+     must show at least two blocks of the kernel's mixed-ploidy form
+     (and launches), at least two general-step blocks and, with the pack
+     on, narrow launches only.  One more query prints each route's
+     blocks, launches and device-combine wall, and must show a narrow,
+     non-mixed launch in the first third; its largest mixed launch is
+     held against the twin in all three forms and timed.  Over the first
+     records of each third (the last from its first hotspot) the block
+     engine must equal the sequential one.  Then a high-PL cohort
+     (`write_cohort(1000, 300, seed=3, high_pl=0.01, triploid_every=97)`:
+     PL past int16, triploid samples) must give one text on cuda with the
+     pack on and off and on the cpu device, every block taking the wide
+     mixed-ploidy kernel while packing.  Its launches join the kernel
+     JSON's mixed-ploidy entry.
 
 Times are CUDA events around back-to-back calls after a warm-up.  A
 kernel's time is that of launches bound once (only a ctypes call between
@@ -142,6 +165,20 @@ SERVING_QUERIES, SERVING_BP = 24, 10_000
 # phase 8: the full width at a tenth of phase 3's depth (the streaming
 # importer converts cells in Python, per cell), in 64 KiB writes
 STREAM_SAMPLES, STREAM_RECORDS, STREAM_WRITE = 1000, 400, 64 * 1024
+# phase 9: the route cohort (write_cohort's options beyond diploid
+# bi-allelic calls) at the full width, and the high-PL cohort.  The
+# route cohort has no triploid samples: a triploid sample makes the
+# whole store's ploidy 3, and at 1,000 samples x 1,024 records the
+# block's PL-tensor budget (ops/store_block.merged_cap) then caps the
+# merged alleles at 10, so hotspot records go to the sequential engine
+# and no block reaches the general step.  Triploid samples ride in the
+# high-PL cohort instead, whose blocks then take the kernel's wide
+# mixed-ploidy form.
+ROUTE_SAMPLES, ROUTE_RECORDS = 1000, 1200
+ROUTE_OPTIONS = dict(seed=2, haploid_stretch=True, phased_share=0.3,
+                     hotspots=12)
+HIGH_PL_SAMPLES, HIGH_PL_RECORDS = 1000, 300
+HIGH_PL_OPTIONS = dict(seed=3, high_pl=0.01, triploid_every=97)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # the kernel's forms: (narrow, narrow_scalars)
 FORMS = {"wide": (False, False), "narrow": (True, False),
@@ -423,13 +460,27 @@ def _query(argv, pack=None) -> str:
     return buf.getvalue()
 
 
+def _interval_query(c, name, lo, hi):
+    """A copy of the cohort's query JSON over columns [lo, hi]."""
+    with open(c.query) as f:
+        doc = json.load(f)
+    doc["query_column_ranges"] = [{"range_list": [{"low": lo,
+                                                   "high": hi}]}]
+    path = os.path.join(c.dir, name)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
 def _counters():
     from genomicsdb_tpu_torch.ops import combine_step as TC
     from genomicsdb_tpu_torch.ops import fused_combine as FC
     from genomicsdb_tpu_torch.query import block_writer as BW
     return ((FC.fused_gather_remap, "launches"),
             (FC.fused_gather_remap, "narrow_launches"),
+            (FC.fused_gather_remap, "mixed_launches"),
             (FC.combine_block, "blocks"),
+            (FC.combine_block, "mixed_blocks"),
             (FC.combine_block, "general_path_blocks"),
             (FC.combine_block, "wide_blocks_when_packing"),
             (BW.render_block_vcf_pipelined, "split_blocks"),
@@ -961,7 +1012,11 @@ def phase_distribution(torch, np, c, card, main_text, largest):
     from genomicsdb_tpu_torch.tools import gdb_query
     print(f"distribution: collectives by {comm.ALL_GATHER} (all-gather) "
           f"and torch.distributed.gather; torch {torch.__version__}")
-    base = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]
+    # the first half of the cohort's columns (half phase 3's depth, to
+    # hold the whole run's wall; every check below is per chunk)
+    half = c.region // 2
+    base = ["-j", _interval_query(c, "query_half.json", 0, half),
+            "--produce-Broad-GVCF", "--device", "cuda"]
     # every query of this phase runs the engine (the mesh never consults
     # the serving index; the unsharded query would be served from it)
     _set_serving_index(False)
@@ -971,8 +1026,12 @@ def phase_distribution(torch, np, c, card, main_text, largest):
     torch.cuda.synchronize()
     t_unsharded = time.perf_counter() - t0
     records = RB.records_built - records
-    if unsharded != main_text:
-        raise AssertionError("the unsharded query differs from phase 3's")
+    # every record but the last (clipped at the half) is phase 3's
+    lines = unsharded.splitlines()
+    if len(lines) < 2 or lines[:-1] != main_text.splitlines()[
+            :len(lines) - 1]:
+        raise AssertionError("the unsharded query over columns "
+                             f"0..{half} differs from phase 3's text")
     launches = 0
     walls = {}
     for shape in ("1x1", "2x1", "2x2"):
@@ -994,7 +1053,7 @@ def phase_distribution(torch, np, c, card, main_text, largest):
                   f"gathers of {r['all_gather_bytes']} bytes, "
                   f"{r['text_bytes']} text bytes; joined the mesh in "
                   f"{r['mesh_s']:.3f} s, query {r['query_s']:.3f} s")
-        if text != main_text:
+        if text != unsharded:
             raise AssertionError(f"--mesh {shape} differs from the "
                                  "unsharded text")
         if [r["rank"] for r in reports] != list(range(world)) or not all(
@@ -1464,6 +1523,196 @@ def phase_streaming_and_demos(torch, card):
     return narrow, mesh_wide
 
 
+def _hotspot_columns(c):
+    """0-based columns of a cohort's hotspot records (more than four
+    alternate alleles besides <NON_REF>; every file carries them), read
+    from its first file."""
+    cols = []
+    with open(c.vcfs[0]) as f:
+        for line in f:
+            if line[0] != "#":
+                pos, _, _, alt = line.split("\t", 5)[1:5]
+                if alt.count(",") >= 5:
+                    cols.append(int(pos) - 1)
+    return cols
+
+
+def _route_query(torch, np, argv):
+    """One more query (not counted) with every block's device combine
+    wrapped: per block (route, first and last record column, kernel
+    launches, the combine's wall between two device syncs), and the
+    arguments of its largest mixed-ploidy kernel launch."""
+    from genomicsdb_tpu_torch.ops import fused_combine as FC
+    from genomicsdb_tpu_torch.query import block_writer as BW
+    combine, launch = BW.combine_block, FC._launch
+    blocks, largest = [], []
+    pad = np.iinfo(np.int64).max - 1
+
+    def rec_combine(blk, device, **kw):
+        cb, fg = FC.combine_block, FC.fused_gather_remap
+        g0, m0, l0, n0 = (cb.general_path_blocks, cb.mixed_blocks,
+                          fg.launches, fg.narrow_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = combine(blk, device, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if cb.general_path_blocks > g0:
+            route = "general step"
+        else:
+            route = ("narrow" if fg.narrow_launches > n0 else "wide") \
+                + (" mixed" if cb.mixed_blocks > m0 else "")
+        real = blk.starts[blk.starts < pad]
+        blocks.append((route, int(real[0]), int(real[-1]),
+                       fg.launches - l0, dt))
+        return out
+
+    def rec_launch(*args, **kw):
+        if kw["mixed"] and (not largest
+                            or args[12].numel() > largest[0][12].numel()):
+            largest[:] = [args, kw]
+        return launch(*args, **kw)
+
+    BW.combine_block, FC._launch = rec_combine, rec_launch
+    try:
+        _query(argv)
+        torch.cuda.synchronize()
+    finally:
+        BW.combine_block, FC._launch = combine, launch
+    return blocks, largest
+
+
+def phase_routes(torch, np, card):
+    """Phase 9: the routes past diploid bi-allelic data, end to end.
+    Returns ({form: (max_abs_err, kernel_ms, twin_ms, bytes)} at the
+    route cohort's largest mixed-ploidy launch, the mixed-ploidy
+    launches of the counted queries)."""
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
+    _set_serving_index(False)
+    work = tempfile.mkdtemp(prefix="chip_smoke_routes_",
+                            dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    c = write_cohort(os.path.join(work, "routes"), ROUTE_SAMPLES,
+                     ROUTE_RECORDS, **ROUTE_OPTIONS)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vcf2gdb.main([c.loader])
+    print(f"route cohort: {ROUTE_SAMPLES} samples x {ROUTE_RECORDS} "
+          f"records per file, {len(c.vcfs)} files, {ROUTE_OPTIONS}, "
+          f"columns 0..{c.region}; written in {t_write:.2f} s, imported "
+          f"(vcf2gdb) in {time.perf_counter() - t0:.2f} s")
+    base = ["-j", c.query, "--produce-Broad-GVCF"]
+    cuda = base + ["--device", "cuda"]
+    cold, t_cold, k_cold = _counted_query(torch, cuda)
+    warm, t_warm, k_warm = _counted_query(torch, cuda)
+    off, t_off, k_off = _counted_query(torch, cuda, pack=False)
+    t0 = time.perf_counter()
+    on_cpu = _query(base + ["--device", "cpu"])
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = _query(cuda + ["--mesh", "2x1"])
+    t_mesh = time.perf_counter() - t0
+    reports = gdb_query.spawn_mesh.rank_reports
+    records = warm.count("\n")
+    print(f"route cohort block query: {records} records; cuda pack on "
+          f"cold {t_cold:.3f} s, warm {t_warm:.3f} s; pack off warm "
+          f"{t_off:.3f} s; cpu device {t_cpu:.3f} s; --mesh 2x1 (gloo, "
+          f"cuda:0) {t_mesh:.3f} s [{card}]")
+    print(f"  pack on (warm): {k_warm}")
+    print(f"  pack off: {k_off}")
+    for r in reports:
+        print(f"  mesh 2x1 rank {r['rank']} on {r['device']} "
+              f"[{r['backend']}]: {r['blocks']} blocks, {r['launches']} "
+              f"kernel launches, {r['general_path_blocks']} general-path "
+              f"blocks, {r['records_built']} records built")
+    if records == 0 or not (cold == warm == off == on_cpu == mesh):
+        raise AssertionError("route cohort: the texts of cuda pack on / "
+                             "off, --device cpu and --mesh 2x1 differ")
+    for label, k, narrow in (("pack on", k_warm, True),
+                             ("pack off", k_off, False)):
+        if not (k["mixed_blocks"] >= 2 and k["mixed_launches"] >= 2
+                and k["general_path_blocks"] >= 2
+                and k["launches"] + k["general_path_blocks"]
+                == k["blocks"]
+                and k["wide_blocks_when_packing"] == 0
+                and (k["narrow_launches"] == k["launches"] if narrow
+                     else k["narrow_launches"] == 0)):
+            raise AssertionError(f"route cohort, {label}: a route was not "
+                                 f"taken as required: {k}")
+    if not (sum(r["general_path_blocks"] for r in reports) >= 2
+            and all(r["launches"] > 0 for r in reports)):
+        raise AssertionError(f"route cohort, --mesh 2x1: {reports}")
+
+    blocks, (args, kw) = _route_query(torch, np, cuda)
+    third = (c.region + 1) // 3
+    print(f"route cohort per route (one more warm query, pack on; wall = "
+          f"the block's device combine between two syncs) [{card}]:")
+    for route in sorted({b[0] for b in blocks}):
+        mine = [b for b in blocks if b[0] == route]
+        print(f"  {route}: {len(mine)} blocks, {sum(b[3] for b in mine)} "
+              f"kernel launches, {sum(b[4] for b in mine):.4f} s; record "
+              f"columns " + ", ".join(f"{b[1]}..{b[2]}" for b in mine))
+    if not any(b[0] == "narrow" and b[2] < third for b in blocks):
+        raise AssertionError("route cohort: no narrow, non-mixed launch in "
+                             f"the first third (columns < {third})")
+    base_kw = {k: kw[k] for k in ("max_merged", "ploidy", "gt_phase",
+                                  "mixed")}
+    B, S = args[12].shape
+    label = (f"largest mixed launch B={B} S={S} C={args[0].shape[1]} "
+             f"M={kw['max_merged']} ploidy={kw['ploidy']} "
+             f"gt_w={args[4].shape[2]}")
+    mixed = _forms_vs_twin(torch, label, args, base_kw, reps_k=50,
+                           reps_t=3)
+    del args
+
+    # the block engine against the sequential engine over the first
+    # records of each third (the last third's from its first hotspot)
+    span = 120 * (c.region + 1) // max(records, 1)
+    hot = [x for x in _hotspot_columns(c) if x >= 2 * third]
+    for t, lo in enumerate((0, third, hot[0] if hot else 2 * third)):
+        q = _interval_query(c, f"query_third{t}.json", lo, lo + span)
+        head = ["-j", q, "--produce-Broad-GVCF", "--device", "cuda"]
+        blk = _query(head + ["--engine", "block"])
+        seq = _query(head + ["--engine", "sequential"])
+        if blk != seq or not seq:
+            raise AssertionError(f"route cohort: block engine differs from "
+                                 f"the sequential engine over columns "
+                                 f"{lo}..{lo + span}")
+        print(f"  block == sequential over columns {lo}..{lo + span} "
+              f"({seq.count(chr(10))} records)")
+
+    t0 = time.perf_counter()
+    h = write_cohort(os.path.join(work, "high_pl"), HIGH_PL_SAMPLES,
+                     HIGH_PL_RECORDS, **HIGH_PL_OPTIONS)
+    vcf2gdb.main([h.loader])
+    print(f"high-PL cohort: {HIGH_PL_SAMPLES} samples x {HIGH_PL_RECORDS} "
+          f"records per file, {HIGH_PL_OPTIONS}; written and imported in "
+          f"{time.perf_counter() - t0:.2f} s")
+    hb = ["-j", h.query, "--produce-Broad-GVCF"]
+    h_on, t_hon, k_hon = _counted_query(torch, hb + ["--device", "cuda"])
+    h_off, t_hoff, k_hoff = _counted_query(torch, hb + ["--device", "cuda"],
+                                           pack=False)
+    t0 = time.perf_counter()
+    h_cpu = _query(hb + ["--device", "cpu"])
+    t_hcpu = time.perf_counter() - t0
+    print(f"high-PL block query: {h_on.count(chr(10))} records; cuda pack "
+          f"on {t_hon:.3f} s, off {t_hoff:.3f} s, cpu device {t_hcpu:.3f} "
+          f"s [{card}]; pack on: {k_hon}")
+    if not h_on or not (h_on == h_off == h_cpu):
+        raise AssertionError("high-PL cohort: the texts of cuda pack on / "
+                             "off and --device cpu differ")
+    if not (k_hon["wide_blocks_when_packing"] == k_hon["blocks"]
+            == k_hon["launches"] == k_hon["mixed_launches"] > 0
+            and k_hon["narrow_launches"] == 0):
+        raise AssertionError(f"high-PL cohort, pack on: every block must "
+                             f"take the wide mixed kernel: {k_hon}")
+    _set_serving_index(True)
+    launches = sum(k["mixed_launches"]
+                   for k in (k_cold, k_warm, k_off, k_hon, k_hoff))
+    return mixed, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA card.")
@@ -1512,13 +1761,16 @@ def main() -> int:
     lap("7")
     stream_narrow, demo_wide = phase_streaming_and_demos(torch, card)
     lap("8")
+    mixed, mixed_launches = phase_routes(torch, np, card)
+    lap("9")
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))
     print("phase walls: " + ", ".join(walls))
 
-    def entry(name, replaces, form, launches):
-        # times and bound at the main path's largest launch
-        err, ms, plain_ms, nbytes = main[form]
+    def entry(name, replaces, form, launches, at=main):
+        # times and bound at the main path's largest launch (`at`: the
+        # largest mixed-ploidy launch of phase 9's route cohort)
+        err, ms, plain_ms, nbytes = at[form]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1534,6 +1786,8 @@ def main() -> int:
         entry("fused_gather_remap (wide, non-mixed: the per-sample "
               "_make_kernel function)", f"{PALLAS}:264", "wide",
               c_off["launches"] + mesh_launches + lane_wide + demo_wide),
+        entry("fused_gather_remap (mixed ploidy)", f"{PALLAS}:875",
+              "narrow+scalars", mixed_launches, at=mixed),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -357,8 +357,9 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
     have checked the value range (`_narrow_inputs_ok`,
     `_narrow_scalars_ok`).  CPU tensors run the plain twin; CUDA tensors
     launch the kernel and count the launch in
-    `fused_gather_remap.launches` (and the narrow ones also in
-    `fused_gather_remap.narrow_launches`)."""
+    `fused_gather_remap.launches` (the narrow ones also in
+    `fused_gather_remap.narrow_launches`, the mixed-ploidy ones in
+    `fused_gather_remap.mixed_launches`)."""
     if narrow_scalars and not narrow:
         raise ValueError("narrow_scalars needs narrow")
     dev = live.device
@@ -376,6 +377,7 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
 
 fused_gather_remap.launches = 0
 fused_gather_remap.narrow_launches = 0
+fused_gather_remap.mixed_launches = 0
 
 
 def _launch(*args, **kw):
@@ -387,6 +389,8 @@ def _launch(*args, **kw):
         fused_gather_remap.launches += 1
         if kw["narrow"]:
             fused_gather_remap.narrow_launches += 1
+        if kw["mixed"]:
+            fused_gather_remap.mixed_launches += 1
     return out
 
 
@@ -587,9 +591,10 @@ def combine_block(blk, device, *, max_merged: int, ploidy: int,
     """The block engine's device combine: combine_step_fused where its
     gates allow, else the general combine_step on the same device.
     Counts every block in `combine_block.blocks`, the general-path ones
-    in `combine_block.general_path_blocks`, and the kernel blocks that
+    in `combine_block.general_path_blocks`, the kernel blocks that
     asked for the narrow form but took the wide one (values past the
-    int16 range) in `combine_block.wide_blocks_when_packing`."""
+    int16 range) in `combine_block.wide_blocks_when_packing`, and the
+    kernel blocks of mixed ploidy in `combine_block.mixed_blocks`."""
     combine_block.blocks += 1
     out = combine_step_fused(blk, device, max_merged=max_merged,
                              ploidy=ploidy, gt_phase=gt_phase,
@@ -601,11 +606,15 @@ def combine_block(blk, device, *, max_merged: int, ploidy: int,
                            med_rows=med_rows, max_merged=max_merged,
                            ploidy=ploidy, gt_phase=gt_phase,
                            mixed_ploidy=mixed_ploidy)
-    elif narrow_out and out["pl"].dtype != torch.int16:
-        combine_block.wide_blocks_when_packing += 1
+    else:
+        if narrow_out and out["pl"].dtype != torch.int16:
+            combine_block.wide_blocks_when_packing += 1
+        if mixed_ploidy:
+            combine_block.mixed_blocks += 1
     return out
 
 
 combine_block.blocks = 0
 combine_block.general_path_blocks = 0
 combine_block.wide_blocks_when_packing = 0
+combine_block.mixed_blocks = 0

@@ -20,11 +20,17 @@ into multi-allelic records.  Sites are bi-allelic SNVs, tri-allelic
 SNVs and multi-base deletions (spanning-deletion records in the
 combine).  Variant records carry INFO BaseQRankSum (float median), MQ0
 (int median), RAW_MQ (ordered float sum) and DP.
+
+Keyword-only options of `write_cohort` add the data of cohorts beyond
+diploid bi-allelic calls (haploid stretches, triploid samples, phased
+calls, hotspots past 16 merged alleles, PL past int16), each sending the
+block engine's blocks down another device route.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 from dataclasses import dataclass
 from typing import List
@@ -92,10 +98,12 @@ class Cohort:
     fasta: str
 
 
-def _cell_pool(rng, n: int, n_alleles: int, ref_block: bool) -> np.ndarray:
+def _cell_pool(rng, n: int, n_alleles: int, ref_block: bool,
+               ploidy: int = 2) -> np.ndarray:
     """n distinct sample-column strings for records of `n_alleles`
-    alleles (NON_REF included): GT:AD:DP:GQ:MIN_DP:PL."""
-    g = n_alleles * (n_alleles + 1) // 2
+    alleles (NON_REF included) at `ploidy`: GT:AD:DP:GQ:MIN_DP:PL, PL
+    with C(n_alleles + ploidy - 1, ploidy) values."""
+    g = math.comb(n_alleles + ploidy - 1, ploidy)
     dp = rng.integers(1, 99, n)
     gq = rng.integers(0, 99, n)
     pl = rng.integers(0, 999, (n, g))
@@ -103,74 +111,207 @@ def _cell_pool(rng, n: int, n_alleles: int, ref_block: bool) -> np.ndarray:
     for i in range(n):
         if ref_block:
             pl_i = [0] + pl[i, 1:].tolist()
-            cells.append(f"0/0:.:{dp[i]}:{gq[i]}:{max(dp[i] - 3, 0)}:"
-                         + ",".join(map(str, pl_i)))
+            cells.append(f"{'/'.join('0' * ploidy)}:.:{dp[i]}:{gq[i]}:"
+                         f"{max(dp[i] - 3, 0)}:" + ",".join(map(str, pl_i)))
             continue
-        a1 = int(rng.integers(0, n_alleles - 1))
-        a2 = int(rng.integers(a1, n_alleles - 1))
+        if ploidy == 2:
+            a1 = int(rng.integers(0, n_alleles - 1))
+            a2 = int(rng.integers(a1, n_alleles - 1))
+            alleles = (a1, a2)
+        else:
+            alleles = sorted(rng.integers(0, n_alleles - 1, ploidy).tolist())
         ad = rng.integers(0, 60, n_alleles).tolist()
         ad[-1] = 0
-        cells.append(f"{a1}/{a2}:{','.join(map(str, ad))}:{dp[i]}:"
+        cells.append(f"{'/'.join(map(str, alleles))}:"
+                     f"{','.join(map(str, ad))}:{dp[i]}:"
                      f"{gq[i]}:.:{','.join(map(str, pl[i]))}")
     return np.array(cells, dtype=object)
 
 
+def _phase_pool(rng, pool: np.ndarray, share: float) -> np.ndarray:
+    """A copy of a diploid variant pool with a share of its calls
+    written phased (`a1|a2`)."""
+    pool = pool.copy()
+    for i in np.nonzero(rng.random(len(pool)) < share)[0]:
+        pool[i] = pool[i].replace("/", "|", 1)
+    return pool
+
+
+def _high_pl_pool(rng, pool: np.ndarray, share: float) -> np.ndarray:
+    """A copy of a variant pool with a share of its calls given PL
+    values in 32,768-60,000 (past the int16 range)."""
+    pool = pool.copy()
+    for i in np.nonzero(rng.random(len(pool)) < share)[0]:
+        head, pl = pool[i].rsplit(":", 1)
+        n = pl.count(",") + 1
+        pool[i] = head + ":" + ",".join(
+            map(str, rng.integers(32768, 60001, n)))
+    return pool
+
+
+_FORMAT = "GT:AD:DP:GQ:MIN_DP:PL"
+
+
+def _ref_prefix(genome: str, pos: int, end: int) -> str:
+    return (f"1\t{pos}\t.\t{genome[pos - 1]}\t<NON_REF>\t.\t.\t"
+            f"END={end}\t{_FORMAT}\t")
+
+
 def _group_lines(rng, genome: str, sites, group_samples: int,
                  n_records: int, pools) -> tuple:
-    """Record lines of one group: variant sites (a random half of the
-    shared pool) with reference blocks tiling the gaps."""
-    lines = []
+    """Records of one group: variant sites (a random half of the shared
+    pool) with reference blocks tiling the gaps.  Each record is
+    [pos, end (reference blocks; None for variants), pool key, line
+    prefix up to the sample columns, the samples' pool picks]; returns
+    (records, last covered position)."""
+    recs = []
     pos = 1                                  # 1-based, next uncovered
     keep = rng.random(len(sites)) < 0.5
     for site, kind in sites[keep]:
-        if len(lines) >= n_records:
+        if len(recs) >= n_records:
             break
         # reference blocks up to the site
-        while pos < site and len(lines) < n_records:
+        while pos < site and len(recs) < n_records:
             end = min(site - 1, pos + int(rng.integers(4, 60)))
             pick = rng.integers(0, len(pools["ref"]), group_samples)
-            lines.append(f"1\t{pos}\t.\t{genome[pos - 1]}\t<NON_REF>\t.\t"
-                         f".\tEND={end}\tGT:AD:DP:GQ:MIN_DP:PL\t"
-                         + "\t".join(pools["ref"][pick]))
+            recs.append([pos, end, "ref", _ref_prefix(genome, pos, end),
+                         pick])
             pos = end + 1
-        if len(lines) >= n_records:
+        if len(recs) >= n_records:
             break
         ref = genome[site - 1]
         others = [b for b in "ACGT" if b != ref]
         if kind == 2:                        # multi-base deletion
             ref = genome[site - 1:site + 2]
             alt = f"{genome[site - 1]},<NON_REF>"
-            pool = pools[3]
+            key = 3
             span = 3
         elif kind == 1:                      # tri-allelic SNV
             a, b = rng.choice(others, 2, replace=False)
             alt = f"{a},{b},<NON_REF>"
-            pool = pools[4]
+            key = 4
             span = 1
         else:                                # bi-allelic SNV
             alt = f"{rng.choice(others)},<NON_REF>"
-            pool = pools[3]
+            key = 3
             span = 1
-        info = (f"BaseQRankSum={rng.normal():.3f};"
-                f"DP={int(rng.integers(10, 9999))};"
-                f"MQ0={int(rng.integers(0, 9))};"
-                f"RAW_MQ={rng.random() * 1e5:.2f}")
-        pick = rng.integers(0, len(pool), group_samples)
-        lines.append(f"1\t{site}\t.\t{ref}\t{alt}\t.\t.\t{info}\t"
-                     "GT:AD:DP:GQ:MIN_DP:PL\t" + "\t".join(pool[pick]))
+        info = _info(rng)
+        pick = rng.integers(0, len(pools[key]), group_samples)
+        recs.append([int(site), None, key,
+                     f"1\t{site}\t.\t{ref}\t{alt}\t.\t.\t{info}\t"
+                     f"{_FORMAT}\t", pick])
         pos = site + span
-    return lines, pos - 1
+    return recs, pos - 1
+
+
+def _info(rng) -> str:
+    return (f"BaseQRankSum={rng.normal():.3f};"
+            f"DP={int(rng.integers(10, 9999))};"
+            f"MQ0={int(rng.integers(0, 9))};"
+            f"RAW_MQ={rng.random() * 1e5:.2f}")
+
+
+def _hotspot_sites(group_recs, lo: int, hi: int, k: int, xrng) -> list:
+    """k positions in [lo, hi] (1-based) that lie inside a reference
+    block past its first position in every group."""
+    ok = np.ones(hi - lo + 1, dtype=bool)
+    for recs in group_recs:
+        cover = np.zeros_like(ok)
+        for pos, end, *_ in recs:
+            if end is not None and end >= lo and pos < hi:
+                a, b = max(pos + 1, lo), min(end, hi)
+                cover[a - lo:b - lo + 1] = True
+        ok &= cover
+    cand = lo + np.nonzero(ok)[0]
+    return sorted(int(s) for s in
+                  xrng.choice(cand, min(k, len(cand)), replace=False))
+
+
+def _hotspot_alleles(n_groups: int, n_pool: int, xrng) -> list:
+    """The pool insertions each group file calls at one hotspot: the
+    site's set of 15-17 of them, spread so that the files together call
+    all of it, topped up to 5-8 per file (with three files or more).
+    The merged record then has 17-19 alleles with REF and <NON_REF>:
+    past the kernel's 16, and within the 19 that the block's PL-tensor
+    budget (`ops/store_block.merged_cap`) allows at 1,000 samples."""
+    site = xrng.choice(n_pool, int(xrng.integers(15, 18)), replace=False)
+    per = [[int(a) for a in site[g::n_groups]] for g in range(n_groups)]
+    for alts in per:
+        rest = [int(a) for a in site if a not in alts]
+        more = max(int(xrng.integers(5, 9)) - len(alts), 0)
+        alts += [rest[i] for i in xrng.choice(len(rest), more,
+                                              replace=False)]
+    return per
+
+
+def _insert_hotspots(recs, genome: str, hot: dict, insertions,
+                     group_samples: int, xrng, pools) -> list:
+    """`recs` with each hotspot site cut out of the reference block that
+    covers it and given its own record: `hot[site]` holds the indices of
+    its alternate alleles in `insertions`, each the REF base followed by
+    that insertion (cells from pool ("hot", n_alleles))."""
+    out = []
+    todo = sorted(hot)
+    for rec in recs:
+        pos, end = rec[0], rec[1]
+        inside = [s for s in todo if end is not None and pos < s <= end]
+        if not inside:
+            out.append(rec)
+            continue
+        for s in inside:
+            if pos <= s - 1:
+                out.append([pos, s - 1, "ref",
+                            _ref_prefix(genome, pos, s - 1), rec[4]])
+            ref = genome[s - 1]
+            alts = [ref + insertions[i] for i in hot[s]]
+            key = ("hot", len(alts) + 2)
+            pick = xrng.integers(0, len(pools[key]), group_samples)
+            out.append([s, None, key,
+                        f"1\t{s}\t.\t{ref}\t{','.join(alts)},<NON_REF>"
+                        f"\t.\t.\t{_info(xrng)}\t{_FORMAT}\t", pick])
+            pos = s + 1
+        if pos <= end:
+            out.append([pos, end, "ref", _ref_prefix(genome, pos, end),
+                        rec[4]])
+        todo = [s for s in todo if s not in inside]
+    return out
 
 
 def write_cohort(out_dir: str, n_samples: int, n_records: int,
                  seed: int = 0, n_groups: int = 0,
-                 deletions: bool = True) -> Cohort:
+                 deletions: bool = True, *,
+                 haploid_stretch: bool = False, triploid_every: int = 0,
+                 phased_share: float = 0.0, hotspots: int = 0,
+                 high_pl: float = 0.0) -> Cohort:
     """Write the cohort and its JSON configuration under `out_dir`.
     `n_records` is the record count of each group's file; `n_groups`
     (default: about one group per 125 samples, at least 2) sets how
     many files the samples are spread over; `deletions=False` turns the
     deletion sites into bi-allelic SNVs (a cohort without spanning
-    deletions)."""
+    deletions).
+
+    The keyword-only options write the data of cohorts beyond diploid
+    bi-allelic calls (with all of them at their defaults the files are
+    those of a cohort without them, byte for byte); thirds are of the
+    region's columns:
+      haploid_stretch  in the middle third, samples of odd index write
+                       haploid calls (GT `0` / `1`, PL of n_alleles
+                       values; reference blocks GT `0` with 2 PL
+                       values), as on chrX outside the PAR
+      triploid_every   every N-th sample (S{N-1}, S{2N-1}, ...) is
+                       triploid throughout: PL of C(n + 2, 3) values
+      phased_share     that share of diploid variant calls is written
+                       phased (`a1|a2`), and the vid stores GT's phase
+                       (length "PP")
+      hotspots         that many sites in the last third carry 5-8
+                       alternate alleles per group file, drawn from a
+                       pool of 20 distinct insertions, so that the
+                       files meeting there (three or more) merge 17-19
+                       alleles; every sample calls them diploid
+      high_pl          that share of variant calls has PL values in
+                       32,768-60,000, past the int16 range
+    Each sample draws its cell from a pool of its own ploidy; a
+    triploid sample stays triploid in the haploid stretch."""
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     if not n_groups:
@@ -189,14 +330,67 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
              3: _cell_pool(rng, 2048, 3, False),
              4: _cell_pool(rng, 2048, 4, False)}
     bounds = [int(x) for x in np.linspace(0, n_samples, n_groups + 1)]
-    vcfs, callsets, region = [], {}, 0
-    starts = set()
+    group_recs, region = [], 0
     for g in range(n_groups):
-        names = [f"S{i}" for i in range(bounds[g], bounds[g + 1])]
-        lines, last = _group_lines(rng, genome, sites, len(names),
-                                   n_records, pools)
-        starts.update(int(ln.split("\t", 2)[1]) for ln in lines)
+        recs, last = _group_lines(rng, genome, sites,
+                                  bounds[g + 1] - bounds[g], n_records,
+                                  pools)
+        group_recs.append(recs)
         region = max(region, int(last) - 1)
+    # the options' draws come from a generator of their own, so the
+    # default cohort's draws stay as they were
+    xrng = np.random.default_rng([seed, 1])
+    ploidy = np.full(n_samples, 2)
+    if triploid_every:
+        ploidy[triploid_every - 1::triploid_every] = 3
+    haploid = np.zeros(n_samples, dtype=bool)
+    if haploid_stretch:
+        haploid[1::2] = ploidy[1::2] == 2
+    variant_keys = [3, 4]
+    for p in [1] * haploid_stretch + [3] * bool(triploid_every):
+        pools["ref", p] = _cell_pool(xrng, 512, 2, True, p)
+        for key in (3, 4):
+            pools[key, p] = _cell_pool(xrng, 512, key, False, p)
+            variant_keys.append((key, p))
+    if hotspots:
+        insertions = sorted({"".join(BASES[xrng.integers(
+            0, 4, int(xrng.integers(1, 7)))]) for _ in range(64)})[:20]
+        lo = 2 * region // 3 + 1
+        hot = {s: _hotspot_alleles(n_groups, len(insertions), xrng)
+               for s in _hotspot_sites(group_recs, lo, region + 1,
+                                       hotspots, xrng)}
+        for n in sorted({len(a) + 2 for per in hot.values() for a in per}):
+            pools["hot", n] = _cell_pool(xrng, 256, n, False)
+            variant_keys.append(("hot", n))
+        group_recs = [_insert_hotspots(
+            recs, genome, {s: per[g] for s, per in hot.items()},
+            insertions, bounds[g + 1] - bounds[g], xrng, pools)
+            for g, recs in enumerate(group_recs)]
+    if phased_share:            # the diploid variant pools
+        for k in variant_keys:
+            if k in (3, 4) or k[0] == "hot":
+                pools[k] = _phase_pool(xrng, pools[k], phased_share)
+    if high_pl:
+        for k in variant_keys:
+            pools[k] = _high_pl_pool(xrng, pools[k], high_pl)
+    stretch = (region // 3, 2 * region // 3)     # 0-based columns
+    vcfs, callsets = [], {}
+    starts = set()
+    for g, recs in enumerate(group_recs):
+        names = [f"S{i}" for i in range(bounds[g], bounds[g + 1])]
+        p_all = ploidy[bounds[g]:bounds[g + 1]]
+        p_mid = np.where(haploid[bounds[g]:bounds[g + 1]], 1, p_all)
+        lines = []
+        for pos, _, key, prefix, pick in recs:
+            cells = pools[key][pick]
+            if not (isinstance(key, tuple) and key[0] == "hot"):
+                p_rec = (p_mid if stretch[0] <= pos - 1 < stretch[1]
+                         else p_all)
+                for j in np.nonzero(p_rec != 2)[0]:
+                    other = pools[key, int(p_rec[j])]
+                    cells[j] = other[pick[j] % len(other)]
+            lines.append(prefix + "\t".join(cells))
+        starts.update(int(rec[0]) for rec in recs)
         path = os.path.join(out_dir, f"group{g}.g.vcf")
         with open(path, "w") as f:
             f.write("\n".join(_HEADER) + "\n")
@@ -213,8 +407,12 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
     cs_path = os.path.join(out_dir, "callsets.json")
     ws_path = os.path.join(out_dir, "ws")
     array = "cohort"
+    vid = _VID
+    if phased_share:
+        vid = json.loads(json.dumps(_VID))
+        vid["fields"]["GT"]["length"] = "PP"
     with open(vid_path, "w") as f:
-        json.dump(_VID, f)
+        json.dump(vid, f)
     with open(cs_path, "w") as f:
         json.dump({"callsets": callsets}, f)
     fasta = os.path.join(out_dir, "ref.fa")

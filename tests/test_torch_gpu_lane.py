@@ -4,8 +4,9 @@ included) at synthetic shapes, at a ragged one (records and samples
 not multiples of the tile), at m 16 / ploidy 6 (PL in genotype chunks)
 and at the largest launch of the 1,000-sample block query; and block
 queries on the card, with the fetch pack on and off, over the socket
-server, and on a mesh of rank processes (1x1 on NCCL, 2x1 on gloo
-sharing one card), against the same query on the CPU.
+server, on a mesh of rank processes (1x1 on NCCL, 2x1 on gloo
+sharing one card) and on a cohort of haploid, triploid and phased calls
+with hotspots past 16 alleles, against the same query on the CPU.
 
 Marked `gpu`; each test skips where torch sees no CUDA card (decided in
 the `cuda` fixture, never at import).  On a machine with a card:
@@ -187,6 +188,50 @@ def test_packed_block_query_on_the_card(cuda, tmp_path):
     assert FC.combine_block.wide_blocks_when_packing == 0
     assert BW.render_block_vcf_pipelined.split_blocks > 0
     assert on_card and on_card == run("cpu") == run("cpu", pack=True)
+
+
+def test_route_cohort_on_the_card(cuda, tmp_path, monkeypatch):
+    """Cohort d of tests/test_torch_cohort_routes.py (haploid stretch,
+    triploid samples, phased calls, hotspots past 16 alleles) on the
+    card: gdb_query's one chunk (the general step) and chunks of 40
+    records (mixed-ploidy kernel launches, general-step blocks), pack on
+    and off, all give the CPU device's text."""
+    import torch
+    from genomicsdb_tpu_torch.core.config import QueryParams
+    from genomicsdb_tpu_torch.core.vid import VidMapper
+    from genomicsdb_tpu_torch.query import driver
+    from genomicsdb_tpu_torch.store import workspace as ws
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
+    monkeypatch.setenv("GENOMICSDB_TPU_SERVING_INDEX", "0")
+    c = write_cohort(str(tmp_path), 24, 150, seed=11, n_groups=4,
+                     haploid_stretch=True, triploid_every=5,
+                     phased_share=0.3, hotspots=6)
+    vcf2gdb.main([c.loader])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        gdb_query.main(["-j", c.query, "--produce-Broad-GVCF", "--device",
+                        "cpu"])
+    on_cpu = buf.getvalue()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        gdb_query.main(["-j", c.query, "--produce-Broad-GVCF", "--device",
+                        "cuda"])
+    assert on_cpu and buf.getvalue() == on_cpu
+    qp = QueryParams.from_file(c.query, 0)
+    vid = VidMapper.from_files(c.vid, c.callsets)
+    store = ws.open_array(c.workspace, c.array)
+    for pack in (True, False):
+        FC.fused_gather_remap.mixed_launches = 0
+        FC.combine_block.general_path_blocks = 0
+        qc = driver.make_query_config(qp, vid)
+        got = driver.run_vcf_query_block(store, qc, qp, vid,
+                                         torch.device("cuda:0"),
+                                         max_records_per_block=40,
+                                         pack=pack)
+        assert FC.fused_gather_remap.mixed_launches > 0
+        assert FC.combine_block.general_path_blocks > 0
+        assert got == on_cpu
 
 
 def test_socket_server_on_the_card(cuda, tmp_path):
