@@ -19,10 +19,13 @@ Every phase passes or the script exits non-zero:
      the synthetic shapes 128 samples x 2048 cells x 262,144 positions
      (m 4, diploid), 1024 x 256 x 32,768, a mixed-ploidy phased block
      with 16 merged alleles, a block whose records and samples are not
-     multiples of the kernel's tile, and a mixed block at 16 merged
-     alleles and ploidy up to 6 (54,264 genotypes: PL in chunks); times
-     twins then kernels, then the same backwards, with each launch's
-     bytes and byte bound.
+     multiples of the kernel's tile, a mixed block at 16 merged
+     alleles and ploidy up to 6 (54,264 genotypes: PL in chunks) and a
+     haploid-only block of 1,000 samples (the ploidy <= 2
+     instantiation); times twins then kernels, then the same backwards,
+     with each launch's instantiation, bytes, byte bound and share of
+     it beside the card's name and power limit.  The build's ptxas
+     report names each instantiation (form, family, bound on M).
   3. End to end through the entry points: a seeded 1,000-sample gVCF
      cohort is written, imported with the port's
      `genomicsdb_tpu_torch.tools.vcf2gdb` (its `main`, in this process:
@@ -121,18 +124,21 @@ Every phase passes or the script exits non-zero:
      the pack on (cold, warm) and off, on `--device cpu` and on `--mesh
      2x1`; the texts must be byte-identical, and the counted queries
      must show at least two blocks of the kernel's mixed-ploidy form
-     (and launches), at least two general-step blocks and, with the pack
-     on, narrow launches only.  One more query prints each route's
-     blocks, launches and device-combine wall, and must show a narrow,
-     non-mixed launch in the first third; its largest mixed launch is
-     held against the twin in all three forms and timed.  Over the first
+     (and launches, every one on the ploidy <= 2 instantiation: counter
+     `fused_gather_remap.ploidy2_launches`), at least two general-step
+     blocks and, with the pack on, narrow launches only.  One more query
+     prints each route's blocks, launches and device-combine wall, and
+     must show a narrow, non-mixed launch in the first third; its
+     largest mixed launch is held against the twin in all three forms
+     and timed.  Over the first
      records of each third (the last from its first hotspot) the block
      engine must equal the sequential one.  Then a high-PL cohort
      (`write_cohort(1000, 300, seed=3, high_pl=0.01, triploid_every=97)`:
      PL past int16, triploid samples) must give one text on cuda with the
      pack on and off and on the cpu device, every block taking the wide
-     mixed-ploidy kernel while packing.  Its launches join the kernel
-     JSON's mixed-ploidy entry.
+     mixed-ploidy kernel while packing (the general instantiation:
+     ploidy 3).  Its launches join the kernel JSON's mixed-ploidy
+     entry.
 
 Times are CUDA events around back-to-back calls after a warm-up.  A
 kernel's time is that of launches bound once (only a ctypes call between
@@ -203,8 +209,17 @@ def phase_environment(torch):
     kl = load_library()
     print(f"kernel library {os.path.relpath(kl.path, ROOT)}: built in "
           f"{kl.build_seconds:.2f} s")
-    for line in _ptxas_summary(kl.ptxas_log):
+    summary = _ptxas_summary(kl.ptxas_log)
+    for line in summary:
         print("  " + line)
+    # three forms x (diploid and ploidy <= 2 at three bounds on M, and
+    # the general one), none with a stack frame or spills
+    clean = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    if kl.ptxas_log and (len(summary) != 21
+                         or not all(line.endswith(clean)
+                                    for line in summary)):
+        raise AssertionError("ptxas: expected 21 instantiations without "
+                             "stack or spills")
     t0 = time.perf_counter()
     if native_loader.get_lib() is None:
         raise RuntimeError("native text library did not build")
@@ -217,13 +232,14 @@ def _ptxas_summary(log):
     its output widths and path, registers, stack frame and spills."""
     import re
     width = {"i": "int32", "s": "int16"}
+    family = {"0": "general", "1": "diploid", "2": "ploidy <= 2"}
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*fused_gather_remap_kernelI"
-                      r"([is])([is])Li(\d+)E", line)
+                      r"([is])([is])Li(\d+)ELi(\d+)E", line)
         if m:
-            vt, st, dm = m.groups()
-            path = f"diploid, M <= {dm}" if dm != "0" else "general"
+            vt, st, fam, bound = m.groups()
+            path = family[fam] + (f", M <= {bound}" if fam != "0" else "")
             name = (f"PL/AD/GT {width[vt]}, GQ/DP/MIN_DP {width[st]}, "
                     f"{path}")
             frame = "stack frame not reported"
@@ -354,7 +370,8 @@ def _synthetic_block(np, label, S, C, R, m, p, mixed, keep_b=None):
     return blk
 
 
-def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, forms=FORMS):
+def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, card,
+                   forms=FORMS):
     """Holds the kernel against the twin in each of `forms`, bit for bit,
     then times both with CUDA events (twins, kernels, kernels, twins).
     Returns {form: (max_abs_err, kernel_ms, twin_ms, bytes)}."""
@@ -386,6 +403,9 @@ def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, forms=FORMS):
             t[prefix + mode].append(fn(mode))
     res = {}
     B, S = args[12].shape
+    family, bound_m = FC.instantiation(base["ploidy"], base["mixed"],
+                                       base["max_merged"])
+    inst = family + (f", M <= {bound_m}" if bound_m else "")
     for mode, kw in modes.items():
         nbytes, cells = _launch_bytes(torch, args, kw)
         k_ms = sum(t[mode]) / 2
@@ -394,7 +414,8 @@ def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, forms=FORMS):
             *args, **kw), reps_k)
         res[mode] = (errs[mode], k_ms, twin_ms, nbytes)
         bound = _bound_ms(nbytes)
-        print(f"kernel vs twin [{label}, {mode}]: B={B} S={S} "
+        print(f"kernel vs twin [{label}, {mode}; {inst} "
+              f"instantiation]: B={B} S={S} "
               f"bit-exact (tolerance 0: every integer word and "
               f"float32 bit pattern equal, max abs err {errs[mode]}); "
               f"kernel {t[mode][0]:.4f}/{t[mode][1]:.4f} ms, "
@@ -403,11 +424,11 @@ def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, forms=FORMS):
               f"twin {twin_ms:.4f}; wrapper call, host included, "
               f"{call_ms:.4f}); {nbytes} bytes ({cells} distinct live "
               f"cells), bound {bound:.4f} ms, {100 * bound / k_ms:.1f}% "
-              f"of it")
+              f"of it [{card}]")
     return res
 
 
-def phase_kernel_vs_twin(torch, np, dev):
+def phase_kernel_vs_twin(torch, np, dev, card):
     """Checks every synthetic case bit for bit in every form, and times
     it."""
     from genomicsdb_tpu_torch.ops import fused_combine as FC
@@ -424,6 +445,8 @@ def phase_kernel_vs_twin(torch, np, dev):
         ("ragged 999x128x16384 m4 p2, B 1001", 999, 128, 16384, 4, 2,
          False, 1001),
         ("mixed phased 4x16x512 m16 pmax6", 4, 16, 512, 16, 6, True, 120),
+        ("haploid 1000x128x4096 m8 p1", 1000, 128, 4096, 8, 1, False,
+         None),
     ]
     for label, S, C, R, m, p, mixed, keep_b in cases:
         blk = _synthetic_block(np, label, S, C, R, m, p, mixed, keep_b)
@@ -447,7 +470,7 @@ def phase_kernel_vs_twin(torch, np, dev):
                                  "of the tile")
         big = m == 16 and p == 6
         _forms_vs_twin(torch, label, args, base, reps_k=3 if big else 20,
-                       reps_t=1 if big else 3)
+                       reps_t=1 if big else 3, card=card)
         del args
         torch.cuda.empty_cache()
 
@@ -479,6 +502,7 @@ def _counters():
     return ((FC.fused_gather_remap, "launches"),
             (FC.fused_gather_remap, "narrow_launches"),
             (FC.fused_gather_remap, "mixed_launches"),
+            (FC.fused_gather_remap, "ploidy2_launches"),
             (FC.combine_block, "blocks"),
             (FC.combine_block, "mixed_blocks"),
             (FC.combine_block, "general_path_blocks"),
@@ -624,7 +648,7 @@ def phase_main_path(torch, c, card):
     B, S = args[12].shape
     label = f"main-path launch B={B} S={S} C={args[0].shape[1]}"
     return _forms_vs_twin(torch, label, args, base, reps_k=50,
-                          reps_t=3), (args, base)
+                          reps_t=3, card=card), (args, base)
 
 
 def _set_serving_index(on: bool) -> None:
@@ -897,7 +921,8 @@ def phase_serving(torch, np, c, card, main_text):
                                "mixed")}
     B, S = args[12].shape
     _forms_vs_twin(torch, f"serving launch B={B} S={S} "
-                   f"C={args[0].shape[1]}", args, base, reps_k=50, reps_t=3)
+                   f"C={args[0].shape[1]}", args, base, reps_k=50, reps_t=3,
+                   card=card)
     del seen, shapes, args, v
 
     # the paged stream and the out-of-core windows through gdb_query
@@ -1094,7 +1119,7 @@ def phase_distribution(torch, np, c, card, main_text, largest):
     b_loc, s_loc = local[16].shape
     _forms_vs_twin(torch, f"2x2 shard launch B={b_loc} S={s_loc} "
                    f"C={args[0].shape[1]}", shard, kw, reps_k=50, reps_t=3,
-                   forms={"wide": FORMS["wide"]})
+                   card=card, forms={"wide": FORMS["wide"]})
 
     loader, query = _four_partitions(np, c)
     part = ["-j", query, "-l", loader, "--produce-Broad-GVCF", "--device",
@@ -1632,6 +1657,7 @@ def phase_routes(torch, np, card):
     for label, k, narrow in (("pack on", k_warm, True),
                              ("pack off", k_off, False)):
         if not (k["mixed_blocks"] >= 2 and k["mixed_launches"] >= 2
+                and k["ploidy2_launches"] == k["mixed_launches"]
                 and k["general_path_blocks"] >= 2
                 and k["launches"] + k["general_path_blocks"]
                 == k["blocks"]
@@ -1663,7 +1689,7 @@ def phase_routes(torch, np, card):
              f"M={kw['max_merged']} ploidy={kw['ploidy']} "
              f"gt_w={args[4].shape[2]}")
     mixed = _forms_vs_twin(torch, label, args, base_kw, reps_k=50,
-                           reps_t=3)
+                           reps_t=3, card=card)
     del args
 
     # the block engine against the sequential engine over the first
@@ -1704,9 +1730,11 @@ def phase_routes(torch, np, card):
                              "off and --device cpu differ")
     if not (k_hon["wide_blocks_when_packing"] == k_hon["blocks"]
             == k_hon["launches"] == k_hon["mixed_launches"] > 0
-            and k_hon["narrow_launches"] == 0):
+            and k_hon["narrow_launches"] == 0
+            and k_hon["ploidy2_launches"] == 0):
         raise AssertionError(f"high-PL cohort, pack on: every block must "
-                             f"take the wide mixed kernel: {k_hon}")
+                             f"take the wide mixed kernel's general "
+                             f"instantiation: {k_hon}")
     _set_serving_index(True)
     launches = sum(k["mixed_launches"]
                    for k in (k_cold, k_warm, k_off, k_hon, k_hoff))
@@ -1746,7 +1774,7 @@ def main() -> int:
 
     card = phase_environment(torch)
     lap("1")
-    phase_kernel_vs_twin(torch, np, dev)
+    phase_kernel_vs_twin(torch, np, dev, card)
     lap("2")
     c_on, c_off, cohort, main_text = phase_end_to_end(torch, card)
     lap("3")

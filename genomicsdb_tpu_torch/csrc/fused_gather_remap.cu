@@ -61,24 +61,38 @@
 //     not decrease with b, so their cells are neighbours in each input
 //     slab (often the same reference-block cell): each load instruction
 //     touches a few sectors, not 32 rows C words apart.
-//   * No division and no local memory in the remap.  The diploid,
-//     non-mixed instantiation (the main path) keeps inv in registers
-//     (template bound kDiploidM on M, loops fully unrolled) and takes
-//     the index of sorted (lo, hi) as lo + hi (hi + 1) / 2 (a shift).
-//     The general instantiation (any ploidy 1-6, mixed) reads inv from
-//     shared memory, sorts the slots with an unrolled network over as
-//     many registers as the launch's largest ploidy (a template bound,
-//     chosen per launch; unused slots hold INT_MAX) and sums
-//     C(a + i, i + 1) from a term table in shared memory, in
-//     straight-line code whose loads leave together; it computes PL one
-//     (record, sample, genotype) element per thread, in genotype chunks
-//     when a row does not fit shared memory (m 16, ploidy 6: 54,264
-//     genotypes; the chunks of one tile are separate work items, taken
-//     by different blocks).  A genotype's alleles and its largest allele
-//     are one packed word, read from device memory through the read-only
-//     path (the lanes of a warp read one or two words; at ploidy <= 4 the
-//     words fit L1).  Staging them in shared memory was no faster on the
-//     card (PERF.md).
+//   * No division and no local memory in the remap.  Three families of
+//     instantiations, which `dispatch` picks per launch:
+//       - diploid (ploidy 2, not mixed: the main path), at a bound kM on
+//         M of 4, 8 or 16: inv in registers, loops fully unrolled, the
+//         index of sorted (lo, hi) taken as lo + hi (hi + 1) / 2 (a
+//         shift), one (record, sample) per thread;
+//       - ploidy <= 2 (a launch whose largest ploidy is at most 2 that is
+//         mixed, as chrX/chrY blocks with haploid and diploid calls are,
+//         or a haploid-only launch), at the same bounds on M: the diploid
+//         family's registers and loops, with each call's ploidy taken in
+//         registers from its GT length.  A diploid call writes the
+//         diploid PL row; a haploid call writes entry k from merged
+//         allele k and VECTOR_END from M on; a call of no ploidy the
+//         launch takes writes VECTOR_END.  Every PL entry is a select
+//         and one gather in the same unrolled loop, so haploid and
+//         diploid calls in one warp do not diverge;
+//       - general (ploidy 3-6, mixed or not): reads inv from shared
+//         memory, sorts the slots with an unrolled network over as many
+//         registers as the launch's largest ploidy (a template bound,
+//         chosen per launch; unused slots hold INT_MAX) and sums
+//         C(a + i, i + 1) from a term table in shared memory, in
+//         straight-line code whose loads leave together; it computes PL
+//         one (record, sample, genotype) element per thread, in genotype
+//         chunks when a row does not fit shared memory (m 16, ploidy 6:
+//         54,264 genotypes; the chunks of one tile are separate work
+//         items, taken by different blocks).  A genotype's alleles and
+//         its largest allele are one packed word, read from device
+//         memory through the read-only path (the lanes of a warp read one
+//         or two words; at ploidy <= 4 the words fit L1).  Staging them
+//         in shared memory was no faster on the card (PERF.md).
+//     The first two families stage a whole PL row (at most 136
+//     genotypes at M 16) and write it out with the other outputs.
 //   * Outputs are staged in shared memory in the consumer layout and
 //     written out coalesced: for one record, a tile's TS samples x W
 //     values are one contiguous run of [B, S, W] (one run of TS values
@@ -416,19 +430,28 @@ __device__ __forceinline__ int genotype_index(int word, int pc,
   return bad ? INT32_MAX : in_gt;
 }
 
-// Blocks per SM the diploid instantiations are built for: five (48
-// registers) at M <= 8, four (64) at M <= 16, where five would spill.
-// Uncapped they take more registers and run slower on the card.
-constexpr int min_blocks(int diploid_m) {
-  return diploid_m == 0 ? 1 : diploid_m <= 8 ? 5 : 4;
+// The instantiation families (see the header): kFamily is a template
+// argument, with kM the bound on M (0 for the general family).
+constexpr int kGeneral = 0;   // ploidy 3-6, mixed or not
+constexpr int kDiploid = 1;   // ploidy 2, not mixed
+constexpr int kPloidy2 = 2;   // largest ploidy <= 2, mixed; or ploidy 1
+
+// Blocks per SM the register-bound families are built for: five (48
+// registers) at M <= 8, four (64) at M <= 16, where five would spill;
+// the ploidy <= 2 family spills at five at M <= 4 too (4 bytes), and
+// takes four there.  Uncapped they take more registers and run slower
+// on the card.
+constexpr int min_blocks(int family, int m) {
+  return family == kGeneral ? 1
+      : m > 8 || (family == kPloidy2 && m <= 4) ? 4 : 5;
 }
 
-template <typename VT, typename ST, int kDiploidM>
-__global__ void __launch_bounds__(kThreads, min_blocks(kDiploidM))
+template <typename VT, typename ST, int kFamily, int kM>
+__global__ void __launch_bounds__(kThreads, min_blocks(kFamily, kM))
 fused_gather_remap_kernel(const Args A, const Plan P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kFast = kDiploidM > 0;
-  constexpr int kLoopM = kFast ? kDiploidM : kMaxMerged;
+  constexpr bool kFast = kFamily != kGeneral;
+  constexpr int kLoopM = kFast ? kM : kMaxMerged;
   int* hdr = (int*)(smem + P.off_hdr);
   int* term = (int*)(smem + P.off_term);
   if constexpr (!kFast) {
@@ -489,12 +512,15 @@ fused_gather_remap_kernel(const Args A, const Plan P) {
       const int pll = valid ? __ldg(A.pl_len + cell) : 0;
       int gl = A.gt_w;
       if (A.mixed) gl = gtl_s[bl * P.lut_row + sl];
+      // the call's ploidy (0: none the launch takes; unused on the
+      // diploid family)
+      int p_call = A.ploidy;
+      if (A.mixed) p_call = A.phase ? (gl + 1) >> 1 : gl;
+      p_call = p_call >= 1 && p_call <= A.ploidy ? p_call : 0;
       if (!kFast) {
-        int p_call = A.ploidy;
-        if (A.mixed) p_call = A.phase ? (gl + 1) >> 1 : gl;
         cell_s[i] = cell;
         pll_s[i] = pll;
-        pcall_s[i] = p_call >= 1 && p_call <= A.ploidy ? p_call : 0;
+        pcall_s[i] = p_call;
         if (chunk > 0) continue;
       }
 
@@ -550,8 +576,8 @@ fused_gather_remap_kernel(const Args A, const Plan P) {
                  valid ? __ldg(A.info_fs + f * sc + cell) : kNanBits);
 
       if constexpr (kFast) {
-        // diploid PL: genotype g = k (k + 1) / 2 + j is the sorted pair
-        // (j, k), j <= k < M; its largest allele is k
+        // PL of a diploid call: genotype g = k (k + 1) / 2 + j is the
+        // sorted pair (j, k), j <= k < M; its largest allele is k
         int xm[kLoopM];
 #pragma unroll
         for (int m = 0; m < kLoopM; ++m)
@@ -559,19 +585,50 @@ fused_gather_remap_kernel(const Args A, const Plan P) {
         const int* plrow = A.pl + cell * A.G_in;
         unsigned char* pl_dst = stage_at<sizeof(VT)>(T.pl, 0, bl, P.tb,
                                                      sl * A.G_out);
+        if (kFamily == kDiploid || A.ploidy == 2) {
 #pragma unroll
-        for (int k = 0; k < kLoopM; ++k) {
+          for (int k = 0; k < kLoopM; ++k) {
 #pragma unroll
-          for (int j = 0; j <= k; ++j) {
+            for (int j = 0; j <= k; ++j) {
+              if (k < A.M) {
+                const int g = k * (k + 1) / 2 + j;
+                const int x0 = xm[j], x1 = xm[k];
+                bool missing = x0 == -1 || x1 == -1;
+                const int a0 = max(x0, 0), a1 = max(x1, 0);
+                int in_gt = diploid_index(min(a0, a1), max(a0, a1));
+                bool in_rec = k < nm;
+                if constexpr (kFamily == kPloidy2) {
+                  // a haploid call's entry g is merged allele g's; no
+                  // load where the entry is VECTOR_END
+                  if (p_call != 2) {
+                    const int xh = g < kLoopM ? xm[min(g, kLoopM - 1)] : -1;
+                    missing = p_call == 0 || g >= A.M || xh == -1;
+                    in_gt = max(xh, 0);
+                    in_rec = g < nm;
+                  }
+                }
+                const bool ok = !missing && in_gt < pll && in_gt < A.G_in
+                    && in_rec;
+                int v = ok ? __ldg(plrow + in_gt) : kIntMissing;
+                if constexpr (kFamily == kPloidy2) {
+                  if (p_call == 0 || (p_call == 1 && g >= A.M))
+                    v = kIntVectorEnd;
+                }
+                put<VT>(pl_dst, g, v);
+              }
+            }
+          }
+        } else {
+          // a haploid-only launch (ploidy 1, mixed or not): G_out = M,
+          // entry k is merged allele k's
+#pragma unroll
+          for (int k = 0; k < kLoopM; ++k) {
             if (k < A.M) {
-              const int x0 = xm[j], x1 = xm[k];
-              const bool missing = x0 == -1 || x1 == -1;
-              const int a0 = max(x0, 0), a1 = max(x1, 0);
-              const int in_gt = diploid_index(min(a0, a1), max(a0, a1));
-              const bool ok = !missing && in_gt < pll && in_gt < A.G_in
-                  && k < nm;
-              put<VT>(pl_dst, k * (k + 1) / 2 + j,
-                      ok ? __ldg(plrow + in_gt) : kIntMissing);
+              const int x = xm[k];
+              const bool ok = p_call == 1 && x != -1 && x < pll
+                  && x < A.G_in && k < nm;
+              put<VT>(pl_dst, k, p_call == 0 ? kIntVectorEnd
+                                 : ok ? __ldg(plrow + x) : kIntMissing);
             }
           }
         }
@@ -603,11 +660,8 @@ fused_gather_remap_kernel(const Args A, const Plan P) {
           const int* invrow = inv_s + bl * P.inv_row + sl * A.M;
           const int nr = nr_s[bl * P.lut_row + sl];
           int in_gt;
-          switch (A.ploidy) {     // uniform: the launch's largest ploidy
-            case 1: in_gt = genotype_index<1>(word, pc, invrow, nr, term);
-                    break;
-            case 2: in_gt = genotype_index<2>(word, pc, invrow, nr, term);
-                    break;
+          // uniform: the launch's largest ploidy, 3-6 on this family
+          switch (A.ploidy) {
             case 3: in_gt = genotype_index<3>(word, pc, invrow, nr, term);
                     break;
             case 4: in_gt = genotype_index<4>(word, pc, invrow, nr, term);
@@ -638,9 +692,9 @@ fused_gather_remap_kernel(const Args A, const Plan P) {
 // the instantiation's registers may hold fewer, and a grid past what is
 // resident runs its last work items in a second wave, so the grid is cut
 // to the resident blocks.
-template <typename VT, typename ST, int kDiploidM>
+template <typename VT, typename ST, int kFamily, int kM>
 cudaError_t launch(const Args& a, const Plan& p, cudaStream_t st) {
-  auto k = fused_gather_remap_kernel<VT, ST, kDiploidM>;
+  auto k = fused_gather_remap_kernel<VT, ST, kFamily, kM>;
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -656,16 +710,24 @@ cudaError_t launch(const Args& a, const Plan& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The instantiation for the plan's path: diploid non-mixed at a bound on
-// M (4, 8 or 16), or the general one.
+// The instantiation for the launch (ops/fused_combine.instantiation
+// mirrors this): diploid non-mixed, or ploidy <= 2 mixed or haploid, at a
+// bound on M (4, 8 or 16); the general one for ploidy 3-6.
 template <typename VT, typename ST>
 cudaError_t dispatch(const Args& a, const Plan& p, cudaStream_t st) {
   if (a.ploidy == 2 && !a.mixed) {
-    if (a.M <= 4) return launch<VT, ST, 4>(a, p, st);
-    if (a.M <= 8) return launch<VT, ST, 8>(a, p, st);
-    return launch<VT, ST, 16>(a, p, st);
+    if (a.M <= 4) return launch<VT, ST, kDiploid, 4>(a, p, st);
+    if (a.M <= 8) return launch<VT, ST, kDiploid, 8>(a, p, st);
+    return launch<VT, ST, kDiploid, 16>(a, p, st);
   }
-  return launch<VT, ST, 0>(a, p, st);
+  if (a.ploidy <= 2) {
+    // a whole PL row per tile: one pass
+    if (p.n_chunks != 1) return cudaErrorInvalidValue;
+    if (a.M <= 4) return launch<VT, ST, kPloidy2, 4>(a, p, st);
+    if (a.M <= 8) return launch<VT, ST, kPloidy2, 8>(a, p, st);
+    return launch<VT, ST, kPloidy2, 16>(a, p, st);
+  }
+  return launch<VT, ST, kGeneral, 0>(a, p, st);
 }
 
 }  // namespace

@@ -7,6 +7,8 @@ of `genomicsdb_tpu.ops.pallas_combine`).
                           raises for anything else
   tile_plan               the kernel's tiles, genotype chunks, shared
                           memory layout and grid for one launch
+  instantiation           which of the kernel's instantiations a launch
+                          takes (the .cu's `dispatch`)
   _prepare                one launch bound to its outputs (the wrapper
                           and chip_smoke.py's timing call it)
   fused_gather_remap_ref  the plain twin (torch ops, any device)
@@ -27,7 +29,7 @@ from __future__ import annotations
 import math
 from dataclasses import astuple, dataclass, fields
 from functools import lru_cache
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -320,6 +322,19 @@ def tile_plan(B: int, S: int, M: int, G_out: int, gt_w: int, F: int,
                     **lay)
 
 
+def instantiation(ploidy: int, mixed: bool, M: int) -> Tuple[str, int]:
+    """The kernel instantiation a launch takes, as the .cu's `dispatch`
+    picks it: (family, bound on M).  "diploid" (ploidy 2, not mixed) and
+    "ploidy2" (largest ploidy at most 2 and mixed, or ploidy 1) at M <= 4,
+    8 or 16; "general" (ploidy 3-6), 0."""
+    bound = 4 if M <= 4 else 8 if M <= 8 else 16
+    if ploidy == 2 and not mixed:
+        return "diploid", bound
+    if ploidy <= 2:
+        return "ploidy2", bound
+    return "general", 0
+
+
 @lru_cache(maxsize=8)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -359,7 +374,9 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
     launch the kernel and count the launch in
     `fused_gather_remap.launches` (the narrow ones also in
     `fused_gather_remap.narrow_launches`, the mixed-ploidy ones in
-    `fused_gather_remap.mixed_launches`)."""
+    `fused_gather_remap.mixed_launches`, those of the ploidy <= 2
+    instantiation, mixed or haploid, in
+    `fused_gather_remap.ploidy2_launches`)."""
     if narrow_scalars and not narrow:
         raise ValueError("narrow_scalars needs narrow")
     dev = live.device
@@ -378,6 +395,7 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
 fused_gather_remap.launches = 0
 fused_gather_remap.narrow_launches = 0
 fused_gather_remap.mixed_launches = 0
+fused_gather_remap.ploidy2_launches = 0
 
 
 def _launch(*args, **kw):
@@ -391,6 +409,9 @@ def _launch(*args, **kw):
             fused_gather_remap.narrow_launches += 1
         if kw["mixed"]:
             fused_gather_remap.mixed_launches += 1
+        if instantiation(kw["ploidy"], kw["mixed"],
+                         kw["max_merged"])[0] == "ploidy2":
+            fused_gather_remap.ploidy2_launches += 1
     return out
 
 

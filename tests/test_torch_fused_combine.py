@@ -69,6 +69,13 @@ KERNEL_CASES = {
     "m16": dict(S=4, C=40, R=2048, seed=5, m=16),
     "mixed_phased_pmax3": dict(S=4, C=48, R=4096, seed=13, ploidy=3,
                                mixed=True, phased=True),
+    # the kernel's ploidy <= 2 instantiation: haploid-only, and mixed
+    # haploid / diploid calls (GT lengths 0-2, phased 0-3)
+    "haploid": dict(S=4, C=48, R=4096, seed=31, ploidy=1, m=8),
+    "mixed_pmax2": dict(S=4, C=48, R=4096, seed=33, ploidy=2, mixed=True,
+                        m=8),
+    "mixed_phased_pmax2": dict(S=4, C=48, R=4096, seed=35, ploidy=2,
+                               mixed=True, phased=True, m=16),
 }
 
 

@@ -57,26 +57,33 @@ def _block(S, C, R, m, p, mixed, seed, keep_b=None):
     return blk
 
 
-# (S, C, R, m, p, mixed, records kept): the last two are ragged (999
-# samples, 1001 records against 16 x 16 tiles) and m 16 / ploidy 6
+# (S, C, R, m, p, mixed, records kept): ragged (999 samples, 1001
+# records against 16 x 16 tiles), m 16 / ploidy 6, and the ploidy <= 2
+# instantiation's haploid-only and mixed launches at each bound on M;
+# mixed launches are phased
 SHAPES = [(64, 256, 16384, 4, 2, False, None),
           (16, 64, 4096, 16, 2, False, None),
           (8, 64, 4096, 4, 6, False, None),
           (16, 64, 4096, 16, 3, True, None),
           (8, 48, 4096, 4, 6, True, None),
           (999, 128, 16384, 4, 2, False, 1001),
-          (4, 16, 512, 16, 6, True, 90)]
+          (4, 16, 512, 16, 6, True, 90),
+          (16, 64, 4096, 8, 1, False, None),
+          (16, 64, 4096, 16, 2, True, None),
+          (16, 64, 4096, 4, 2, True, None),
+          (16, 64, 4096, 4, 1, True, None)]
 
 
 def _check_args(args, **kw):
-    before = (FC.fused_gather_remap.launches,
-              FC.fused_gather_remap.narrow_launches)
+    fg = FC.fused_gather_remap
+    before = (fg.launches, fg.narrow_launches, fg.ploidy2_launches)
     got = FC.fused_gather_remap(*args, **kw)
     torch.cuda.synchronize()
     narrow = int(kw.get("narrow", False))
-    assert (FC.fused_gather_remap.launches,
-            FC.fused_gather_remap.narrow_launches) == (before[0] + 1,
-                                                        before[1] + narrow)
+    ploidy2 = int(FC.instantiation(kw["ploidy"], kw["mixed"],
+                                   kw["max_merged"])[0] == "ploidy2")
+    assert (fg.launches, fg.narrow_launches, fg.ploidy2_launches) == (
+        before[0] + 1, before[1] + narrow, before[2] + ploidy2)
     ref = FC.fused_gather_remap_ref(*args, **kw)
     for key, r in ref.items():
         g = got[key]

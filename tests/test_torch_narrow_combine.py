@@ -139,6 +139,12 @@ NARROW_CASES = {
                          mixed=True), True),
     "mixed_phased_pmax3": (dict(S=4, C=48, R=4096, seed=17, ploidy=3,
                                 mixed=True, phased=True), True),
+    # the kernel's ploidy <= 2 instantiation
+    "haploid": (dict(S=4, C=48, R=4096, seed=31, ploidy=1, m=8), True),
+    "mixed_pmax2": (dict(S=4, C=48, R=4096, seed=33, ploidy=2, mixed=True,
+                         m=8), True),
+    "mixed_phased_pmax2": (dict(S=4, C=48, R=4096, seed=35, ploidy=2,
+                                mixed=True, phased=True, m=16), True),
 }
 
 

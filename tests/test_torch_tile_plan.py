@@ -6,7 +6,10 @@ handed is computed here and checked here: the tile plan for every gated
 no gap or overlap and its genotype chunks cover G_out; the term table
 and the diploid closed form give the canonical genotype index of every
 genotype; the Python plan and the kernel's `Plan` struct list the same
-fields in the same order; the ctypes binding matches the C signature.
+fields in the same order; the ctypes binding matches the C signature;
+the Python mirror of the kernel's `dispatch` (`instantiation`) picks
+the instantiation the .cu's text picks, for every launch the kernel
+takes.
 """
 
 import math
@@ -91,6 +94,27 @@ def test_tile_plan_fits_and_covers(M, ploidy, mixed, form):
         assert plan.slot_pl >= plan.ts * plan.gc * ev + 15
         assert plan.slot_ad >= plan.ts * M * ev + 15
         assert plan.slot_gt >= plan.ts * gt_w * ev + 15
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("ploidy", [1, 2])
+def test_ploidy2_plans_take_whole_rows(ploidy, mixed, form):
+    """Every launch of the register-bound families (ploidy <= 2, mixed
+    or not, M <= 16) stages whole PL rows: one pass of G_out genotypes,
+    as the kernel's `dispatch` requires of the ploidy <= 2 family; the
+    route cohort's largest mixed launch among them."""
+    narrow, scalars = FORMS[form]
+    gt_w = 2 * ploidy - 1 if mixed else ploidy
+    for M in range(1, FC.MAX_MERGED + 1):
+        G_out = len(genotype_combo_table(M, ploidy))
+        assert G_out <= 136
+        for B, S in SHAPES + ((1031, 1000),):
+            plan = FC.tile_plan(B, S, M, G_out, gt_w, 1, 1, 1, mixed=mixed,
+                                narrow=narrow, narrow_scalars=scalars)
+            _check_plan(plan, B, S, G_out)
+            assert (plan.n_chunks, plan.gc) == (1, G_out)
+            assert (plan.lut_inv > plan.lut_gtl) == mixed   # the GT-length row
 
 
 def test_tile_plan_main_path_and_largest_rows():
@@ -215,3 +239,100 @@ def test_binding_matches_the_c_signature():
         kind = p.rsplit(" ", 1)[0]
         want = {"long long": KB.ctypes.c_longlong, "int": KB.ctypes.c_int}
         assert t is want.get(kind, KB.ctypes.c_void_p), p
+
+
+def _c_dispatch(src):
+    """The .cu's `dispatch` body as a Python function of (ploidy, mixed,
+    M, n_chunks): (family, bound on M) of the instantiation it launches,
+    or None where it refuses the launch.  Each line of the body is one
+    of `if (cond) {`, `}`, `[if (cond)] return launch<VT, ST, kFamily,
+    kM>(a, p, st);` or `[if (cond)] return cudaErrorInvalidValue;`."""
+    body = re.search(r"cudaError_t dispatch\(const Args& a, const Plan& p, "
+                     r"cudaStream_t st\) \{\n(.*?)\n\}\n", src,
+                     re.S).group(1)
+    families = {"kGeneral": "general", "kDiploid": "diploid",
+                "kPloidy2": "ploidy2"}
+
+    def cond(c):
+        c = c.replace("&&", " and ").replace("||", " or ")
+        c = re.sub(r"!(?!=)", " not ", c)
+        return re.sub(r"\b[ap]\.", "", c)
+
+    def ret(r):
+        m = re.fullmatch(r"return launch<VT, ST, (\w+), (\d+)>\(a, p, "
+                         r"st\);", r)
+        if m:
+            return f"return ({families[m.group(1)]!r}, {m.group(2)})"
+        assert r == "return cudaErrorInvalidValue;", r
+        return "return None"
+
+    lines, depth = ["def dispatch(ploidy, mixed, M, n_chunks):"], 1
+    for line in body.splitlines():
+        line = re.sub(r"//.*", "", line).strip()
+        if not line:
+            continue
+        if line == "}":
+            depth -= 1
+            continue
+        m = re.fullmatch(r"if \((.*)\) \{", line)
+        if m:
+            lines.append("    " * depth + f"if {cond(m.group(1))}:")
+            depth += 1
+            continue
+        m = re.fullmatch(r"if \((.*?)\) (return .*)", line)
+        if m:
+            lines.append("    " * depth + f"if {cond(m.group(1))}: "
+                         + ret(m.group(2)))
+        else:
+            lines.append("    " * depth + ret(line))
+    assert depth == 1
+    scope = {}
+    exec("\n".join(lines), scope)
+    return scope["dispatch"]
+
+
+def test_instantiation_mirrors_the_kernel_dispatch():
+    """`fused_combine.instantiation` picks, for every launch the kernel
+    takes, the instantiation the .cu's `dispatch` launches: diploid
+    non-mixed launches keep their three instantiations, every launch of
+    ploidy <= 2 that is mixed, and every haploid one, takes the ploidy
+    <= 2 family at the same bounds on M, ploidy 3-6 the general one; a
+    ploidy <= 2 launch in more than one PL pass is refused."""
+    with open(CU) as f:
+        dispatch = _c_dispatch(f.read())
+    seen = set()
+    for ploidy in range(1, FC.MAX_PLOIDY + 1):
+        for mixed in (False, True):
+            for M in range(1, FC.MAX_MERGED + 1):
+                got = FC.instantiation(ploidy, mixed, M)
+                assert dispatch(ploidy, mixed, M, 1) == got
+                seen.add(got)
+                bound = 4 if M <= 4 else 8 if M <= 8 else 16
+                if ploidy == 2 and not mixed:
+                    assert got == ("diploid", bound)
+                elif ploidy <= 2:
+                    assert got == ("ploidy2", bound)
+                    assert dispatch(ploidy, mixed, M, 2) is None
+                else:
+                    assert got == ("general", 0)
+    assert seen == {(f, m) for f in ("diploid", "ploidy2")
+                    for m in (4, 8, 16)} | {("general", 0)}
+
+
+def test_launch_counts_the_ploidy2_instantiation(monkeypatch):
+    """`_launch` counts a launch of the ploidy <= 2 instantiation, mixed
+    or haploid, in `ploidy2_launches`, and no other (a bound launch
+    that runs nothing stands in for the kernel)."""
+    def prepare(*args, **kw):
+        return {}, lambda: None
+
+    monkeypatch.setattr(FC, "_prepare", prepare)
+    fg = FC.fused_gather_remap
+    for ploidy, mixed, counted in ((2, False, 0), (2, True, 1),
+                                   (1, False, 1), (1, True, 1),
+                                   (3, True, 0), (6, False, 0)):
+        before = (fg.launches, fg.ploidy2_launches)
+        FC._launch(max_merged=8, ploidy=ploidy, gt_phase=False,
+                   mixed=mixed, narrow=True, narrow_scalars=True)
+        assert (fg.launches, fg.ploidy2_launches) == (
+            before[0] + 1, before[1] + counted)
