@@ -20,12 +20,16 @@ Every phase passes or the script exits non-zero:
      (m 4, diploid), 1024 x 256 x 32,768, a mixed-ploidy phased block
      with 16 merged alleles, a block whose records and samples are not
      multiples of the kernel's tile, a mixed block at 16 merged
-     alleles and ploidy up to 6 (54,264 genotypes: PL in chunks) and a
-     haploid-only block of 1,000 samples (the ploidy <= 2
-     instantiation); times twins then kernels, then the same backwards,
+     alleles and ploidy up to 6 (54,264 genotypes: PL in chunks, the
+     general instantiation), a haploid-only block of 1,000 samples (the
+     ploidy <= 2 instantiation) and a tetraploid block of 1,000 samples
+     (m 7, 210 genotypes, cut to the 1,030 records of one block: the
+     polyploid instantiation, as is the mixed m 16 block of ploidy up to
+     3); times twins then kernels, then the same backwards,
      with each launch's instantiation, bytes, byte bound and share of
-     it beside the card's name and power limit.  The build's ptxas
-     report names each instantiation (form, family, bound on M).
+     it beside the card's name and power limit.  The build (one nvcc
+     per source, all at once) reports the count of instantiations and
+     names each (form, family, bound on M and on the ploidy).
   3. End to end through the entry points: a seeded 1,000-sample gVCF
      cohort is written, imported with the port's
      `genomicsdb_tpu_torch.tools.vcf2gdb` (its `main`, in this process:
@@ -136,9 +140,23 @@ Every phase passes or the script exits non-zero:
      (`write_cohort(1000, 300, seed=3, high_pl=0.01, triploid_every=97)`:
      PL past int16, triploid samples) must give one text on cuda with the
      pack on and off and on the cpu device, every block taking the wide
-     mixed-ploidy kernel while packing (the general instantiation:
-     ploidy 3).  Its launches join the kernel JSON's mixed-ploidy
-     entry.
+     mixed-ploidy kernel while packing, every launch the polyploid
+     instantiation (ploidy 3: counter `fused_gather_remap.
+     polyploid_launches`); its largest launch is held against the twin
+     in all three forms and timed.  Its launches join the kernel JSON's
+     mixed-ploidy entry and its ploidy 3-6 entry.
+ 10. The polyploid path at the full width: an autotetraploid cohort
+     (`write_cohort(1000, 600, seed=4, ploidy=4)`: every sample
+     tetraploid, 8 files) is imported and queried on cuda with the pack
+     on (cold, warm) and off, and on `--device cpu`; the texts must be
+     byte-identical, every kernel block must launch the polyploid
+     instantiation (narrow only with the pack on), and over the head
+     records the block engine must equal the sequential one.  Prints
+     each launch's (B, S, M, G_out, form), bytes and byte bound, the
+     blocks that went to the general step and the records spliced from
+     the sequential engine; the largest launch is held against the twin
+     in all three forms and timed.  Its launches join the kernel JSON's
+     ploidy 3-6 entry.
 
 Times are CUDA events around back-to-back calls after a warm-up.  A
 kernel's time is that of launches bound once (only a ctypes call between
@@ -185,6 +203,15 @@ ROUTE_OPTIONS = dict(seed=2, haploid_stretch=True, phased_share=0.3,
                      hotspots=12)
 HIGH_PL_SAMPLES, HIGH_PL_RECORDS = 1000, 300
 HIGH_PL_OPTIONS = dict(seed=3, high_pl=0.01, triploid_every=97)
+# phase 10: an autotetraploid cohort at the full width; at 1,000 samples
+# the block's PL-tensor budget caps it at 7 merged alleles (210
+# genotypes), and 600 records per file make about four blocks
+POLY_SAMPLES, POLY_RECORDS = 1000, 600
+POLY_OPTIONS = dict(seed=4, ploidy=4)
+# the build: three forms x (diploid and ploidy <= 2 at three bounds on
+# M, the general family, the polyploid family at three bounds on the
+# ploidy and two on M)
+INSTANTIATIONS = 3 * (3 + 3 + 1 + 3 * 2)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # the kernel's forms: (narrow, narrow_scalars)
 FORMS = {"wide": (False, False), "narrow": (True, False),
@@ -199,6 +226,7 @@ def _run(cmd) -> str:
 def phase_environment(torch):
     from genomicsdb_tpu_torch.runtime import native_loader
     from genomicsdb_tpu_torch.ops._kernel_build import load_library, _nvcc
+    from genomicsdb_tpu_torch.ops._kernel_build import sources as kl_sources
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"])
     print(f"card: {card}")
@@ -207,19 +235,19 @@ def phase_environment(torch):
           f"device 0 {torch.cuda.get_device_name(0)}")
     print(_run([_nvcc(), "--version"]).splitlines()[-1])
     kl = load_library()
-    print(f"kernel library {os.path.relpath(kl.path, ROOT)}: built in "
-          f"{kl.build_seconds:.2f} s")
     summary = _ptxas_summary(kl.ptxas_log)
+    print(f"kernel library {os.path.relpath(kl.path, ROOT)}: "
+          f"{len(summary)} instantiations from {len(kl_sources())} sources "
+          f"built in {kl.build_seconds:.2f} s")
     for line in summary:
         print("  " + line)
-    # three forms x (diploid and ploidy <= 2 at three bounds on M, and
-    # the general one), none with a stack frame or spills
+    # none with a stack frame or spills
     clean = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
-    if kl.ptxas_log and (len(summary) != 21
+    if kl.ptxas_log and (len(summary) != INSTANTIATIONS
                          or not all(line.endswith(clean)
                                     for line in summary)):
-        raise AssertionError("ptxas: expected 21 instantiations without "
-                             "stack or spills")
+        raise AssertionError(f"ptxas: expected {INSTANTIATIONS} "
+                             "instantiations without stack or spills")
     t0 = time.perf_counter()
     if native_loader.get_lib() is None:
         raise RuntimeError("native text library did not build")
@@ -237,9 +265,16 @@ def _ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*fused_gather_remap_kernelI"
                       r"([is])([is])Li(\d+)ELi(\d+)E", line)
-        if m:
-            vt, st, fam, bound = m.groups()
-            path = family[fam] + (f", M <= {bound}" if fam != "0" else "")
+        p = re.search(r"Function properties for \S*polyploid_kernelI"
+                      r"([is])([is])Li(\d+)ELi(\d+)E", line)
+        if m or p:
+            if m:
+                vt, st, fam, bound = m.groups()
+                path = family[fam] + (f", M <= {bound}" if fam != "0"
+                                      else "")
+            else:
+                vt, st, bound, kp = p.groups()
+                path = f"polyploid, M <= {bound}, ploidy <= {kp}"
             name = (f"PL/AD/GT {width[vt]}, GQ/DP/MIN_DP {width[st]}, "
                     f"{path}")
             frame = "stack frame not reported"
@@ -403,10 +438,16 @@ def _forms_vs_twin(torch, label, args, base, reps_k, reps_t, card,
             t[prefix + mode].append(fn(mode))
     res = {}
     B, S = args[12].shape
-    family, bound_m = FC.instantiation(base["ploidy"], base["mixed"],
-                                       base["max_merged"])
-    inst = family + (f", M <= {bound_m}" if bound_m else "")
     for mode, kw in modes.items():
+        plan = FC.launch_plan(args[0], args[12], args[4], *args[9:12],
+                              max_merged=kw["max_merged"],
+                              ploidy=kw["ploidy"], mixed=kw["mixed"],
+                              narrow=kw["narrow"],
+                              narrow_scalars=kw["narrow_scalars"],
+                              n_sm=FC._sm_count(args[12].device))
+        family, bound_m = FC.instantiation(kw["ploidy"], kw["mixed"],
+                                           kw["max_merged"], plan.n_chunks)
+        inst = family + (f", M <= {bound_m}" if bound_m else "")
         nbytes, cells = _launch_bytes(torch, args, kw)
         k_ms = sum(t[mode]) / 2
         twin_ms = sum(t["twin " + mode]) / 2
@@ -447,6 +488,8 @@ def phase_kernel_vs_twin(torch, np, dev, card):
         ("mixed phased 4x16x512 m16 pmax6", 4, 16, 512, 16, 6, True, 120),
         ("haploid 1000x128x4096 m8 p1", 1000, 128, 4096, 8, 1, False,
          None),
+        ("tetraploid 1000x128x4096 m7 p4, B 1030", 1000, 128, 4096, 7, 4,
+         False, 1030),
     ]
     for label, S, C, R, m, p, mixed, keep_b in cases:
         blk = _synthetic_block(np, label, S, C, R, m, p, mixed, keep_b)
@@ -503,6 +546,7 @@ def _counters():
             (FC.fused_gather_remap, "narrow_launches"),
             (FC.fused_gather_remap, "mixed_launches"),
             (FC.fused_gather_remap, "ploidy2_launches"),
+            (FC.fused_gather_remap, "polyploid_launches"),
             (FC.combine_block, "blocks"),
             (FC.combine_block, "mixed_blocks"),
             (FC.combine_block, "general_path_blocks"),
@@ -608,13 +652,10 @@ def _launch_key(args, kw):
             args[9].shape[0], args[10].shape[0], args[11].shape[0], form)
 
 
-def phase_main_path(torch, c, card):
-    """Records every kernel launch of one more warm pack-on query (not
-    counted), then holds the largest launch's inputs against the twin in
-    every form and times them.  Returns ({form: (max_abs_err, kernel_ms,
-    twin_ms, bytes)} at that launch, that launch's (args, keywords))."""
+def _recorded(fn):
+    """(fn(), the (args, keywords) of every kernel launch it made): the
+    wrapper's launches are recorded, not counted apart."""
     from genomicsdb_tpu_torch.ops import fused_combine as FC
-    argv = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]
     seen = []
     launch = FC._launch
 
@@ -624,24 +665,42 @@ def phase_main_path(torch, c, card):
 
     FC._launch = recorder
     try:
-        _query(argv)
+        return fn(), seen
     finally:
         FC._launch = launch
+
+
+def _print_launches(torch, label, seen, card):
+    """Each distinct launch shape of `seen` with its count, bytes and
+    distinct live cells, and the bytes and byte bound of all of them."""
+    from genomicsdb_tpu_torch.ops.cell_block import genotype_combo_table
     shapes = {}
     total = 0
     for args, kw in seen:
         nbytes, cells = _launch_bytes(torch, args, kw)
         total += nbytes
         shapes.setdefault(_launch_key(args, kw), []).append((nbytes, cells))
-    print(f"main path: {len(seen)} kernel launches, {total} bytes, "
+    print(f"{label}: {len(seen)} kernel launches, {total} bytes, "
           f"bound {_bound_ms(total):.4f} ms in all [{card}]")
     for (bs, C, G_in, A_in, M, p, gt_w, F, Fi, Fs, form), v in sorted(
             shapes.items()):
         print(f"  {len(v)} x B={bs[0]} S={bs[1]} C={C} G_in={G_in} "
-              f"A_in={A_in} M={M} ploidy={p} gt_w={gt_w} F={F} Fi={Fi} "
-              f"Fs={Fs} {form}: bytes "
-              f"{min(x[0] for x in v)}..{max(x[0] for x in v)}, distinct "
+              f"A_in={A_in} M={M} ploidy={p} "
+              f"G_out={len(genotype_combo_table(M, p))} gt_w={gt_w} "
+              f"F={F} Fi={Fi} Fs={Fs} {form}: bytes "
+              f"{min(x[0] for x in v)}..{max(x[0] for x in v)} (bound "
+              f"{_bound_ms(max(x[0] for x in v)):.4f} ms at most), distinct "
               f"live cells {min(x[1] for x in v)}..{max(x[1] for x in v)}")
+
+
+def phase_main_path(torch, c, card):
+    """Records every kernel launch of one more warm pack-on query (not
+    counted), then holds the largest launch's inputs against the twin in
+    every form and times them.  Returns ({form: (max_abs_err, kernel_ms,
+    twin_ms, bytes)} at that launch, that launch's (args, keywords))."""
+    argv = ["-j", c.query, "--produce-Broad-GVCF", "--device", "cuda"]
+    _, seen = _recorded(lambda: _query(argv))
+    _print_launches(torch, "main path", seen, card)
     args, kw = max(seen, key=lambda a: a[0][12].numel())
     base = {k: kw[k] for k in ("max_merged", "ploidy", "gt_phase",
                                "mixed")}
@@ -1717,8 +1776,8 @@ def phase_routes(torch, np, card):
           f"{time.perf_counter() - t0:.2f} s")
     hb = ["-j", h.query, "--produce-Broad-GVCF"]
     h_on, t_hon, k_hon = _counted_query(torch, hb + ["--device", "cuda"])
-    h_off, t_hoff, k_hoff = _counted_query(torch, hb + ["--device", "cuda"],
-                                           pack=False)
+    (h_off, t_hoff, k_hoff), h_seen = _recorded(lambda: _counted_query(
+        torch, hb + ["--device", "cuda"], pack=False))
     t0 = time.perf_counter()
     h_cpu = _query(hb + ["--device", "cpu"])
     t_hcpu = time.perf_counter() - t0
@@ -1728,17 +1787,113 @@ def phase_routes(torch, np, card):
     if not h_on or not (h_on == h_off == h_cpu):
         raise AssertionError("high-PL cohort: the texts of cuda pack on / "
                              "off and --device cpu differ")
-    if not (k_hon["wide_blocks_when_packing"] == k_hon["blocks"]
-            == k_hon["launches"] == k_hon["mixed_launches"] > 0
-            and k_hon["narrow_launches"] == 0
-            and k_hon["ploidy2_launches"] == 0):
-        raise AssertionError(f"high-PL cohort, pack on: every block must "
-                             f"take the wide mixed kernel's general "
-                             f"instantiation: {k_hon}")
+    for label, k in (("pack on", k_hon), ("pack off", k_hoff)):
+        if not (k["blocks"] == k["launches"] == k["mixed_launches"]
+                == k["polyploid_launches"] > 0
+                and k["narrow_launches"] == k["ploidy2_launches"] == 0
+                and (label == "pack off"
+                     or k["wide_blocks_when_packing"] == k["blocks"])):
+            raise AssertionError(f"high-PL cohort, {label}: every block "
+                                 f"must take the wide mixed kernel's "
+                                 f"polyploid instantiation: {k}")
+    _print_launches(torch, "high-PL cohort, pack off", h_seen, card)
+    args, kw = max(h_seen, key=lambda a: a[0][12].numel())
+    del h_seen
+    B, S = args[12].shape
+    _forms_vs_twin(torch, f"high-PL largest launch B={B} S={S} "
+                   f"C={args[0].shape[1]} M={kw['max_merged']} "
+                   f"ploidy={kw['ploidy']} gt_w={args[4].shape[2]}", args,
+                   {k: kw[k] for k in ("max_merged", "ploidy", "gt_phase",
+                                       "mixed")},
+                   reps_k=20, reps_t=3, card=card)
+    del args
     _set_serving_index(True)
     launches = sum(k["mixed_launches"]
                    for k in (k_cold, k_warm, k_off, k_hon, k_hoff))
-    return mixed, launches
+    return mixed, launches, k_hon["polyploid_launches"] \
+        + k_hoff["polyploid_launches"]
+
+
+def phase_polyploid(torch, card):
+    """Phase 10: the autotetraploid cohort end to end at the full width.
+    Returns ({form: (max_abs_err, kernel_ms, twin_ms, bytes)} at its
+    largest launch, the polyploid launches of the counted queries)."""
+    from genomicsdb_tpu_torch.core import profile
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import vcf2gdb
+    _set_serving_index(False)
+    work = tempfile.mkdtemp(prefix="chip_smoke_polyploid_",
+                            dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    c = write_cohort(work, POLY_SAMPLES, POLY_RECORDS, **POLY_OPTIONS)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vcf2gdb.main([c.loader])
+    print(f"polyploid cohort: {POLY_SAMPLES} samples x {POLY_RECORDS} "
+          f"records per file, {len(c.vcfs)} files, {POLY_OPTIONS}, columns "
+          f"0..{c.region}; written in {t_write:.2f} s, imported (vcf2gdb) "
+          f"in {time.perf_counter() - t0:.2f} s")
+    base = ["-j", c.query, "--produce-Broad-GVCF", "--engine", "block"]
+    cuda = base + ["--device", "cuda"]
+    cold, t_cold, k_cold = _counted_query(torch, cuda)
+    (warm, t_warm, k_warm), seen = _recorded(
+        lambda: _counted_query(torch, cuda))
+    off, t_off, k_off = _counted_query(torch, cuda, pack=False)
+    # the cpu device's query counts the records the block engine renders
+    # and those it splices from the sequential engine
+    profile.ENABLED = True
+    profile.GLOBAL_STATS.counters.clear()
+    t0 = time.perf_counter()
+    try:
+        on_cpu = _query(base + ["--device", "cpu"])
+    finally:
+        profile.ENABLED = False
+    t_cpu = time.perf_counter() - t0
+    stats = dict(profile.GLOBAL_STATS.counters)
+    records = warm.count("\n")
+    print(f"polyploid block query: {records} records; cuda pack on cold "
+          f"{t_cold:.3f} s, warm {t_warm:.3f} s; pack off {t_off:.3f} s; "
+          f"cpu device {t_cpu:.3f} s [{card}]")
+    print(f"  pack on (warm): {k_warm}")
+    print(f"  pack off: {k_off}")
+    print(f"  general-step blocks: {k_warm['general_path_blocks']}; "
+          f"records rendered by the block engine "
+          f"{stats.get('block_records', 0)}, spliced from the sequential "
+          f"engine {stats.get('spliced_records', 0)} (cpu device query)")
+    if records == 0 or not (cold == warm == off == on_cpu):
+        raise AssertionError("polyploid cohort: the texts of cuda pack on / "
+                             "off and --device cpu differ")
+    for label, k, narrow in (("pack on, cold", k_cold, True),
+                             ("pack on", k_warm, True),
+                             ("pack off", k_off, False)):
+        if not (k["blocks"] == k["launches"] == k["polyploid_launches"] > 0
+                and k["general_path_blocks"] == k["mixed_blocks"] == 0
+                and k["wide_blocks_when_packing"] == 0
+                and k["narrow_launches"] == (k["launches"] if narrow
+                                             else 0)):
+            raise AssertionError(f"polyploid cohort, {label}: every block "
+                                 f"must launch the polyploid instantiation "
+                                 f"({'narrow' if narrow else 'wide'}): {k}")
+    head = ["-j", c.query_head, "--produce-Broad-GVCF", "--device", "cuda"]
+    blk_head = _query(head + ["--engine", "block"])
+    seq_head = _query(head + ["--engine", "sequential"])
+    if blk_head != seq_head or not seq_head:
+        raise AssertionError("polyploid cohort: block engine differs from "
+                             "the sequential engine over the head interval")
+    print(f"  block == sequential over columns {c.head_interval} "
+          f"({seq_head.count(chr(10))} records)")
+    _print_launches(torch, "polyploid cohort, pack on (warm)", seen, card)
+    args, kw = max(seen, key=lambda a: a[0][12].numel())
+    del seen
+    B, S = args[12].shape
+    res = _forms_vs_twin(
+        torch, f"polyploid largest launch B={B} S={S} C={args[0].shape[1]} "
+        f"M={kw['max_merged']} ploidy={kw['ploidy']}", args,
+        {k: kw[k] for k in ("max_merged", "ploidy", "gt_phase", "mixed")},
+        reps_k=50, reps_t=3, card=card)
+    del args
+    _set_serving_index(True)
+    return res, sum(k["polyploid_launches"] for k in (k_cold, k_warm, k_off))
 
 
 def main() -> int:
@@ -1789,15 +1944,18 @@ def main() -> int:
     lap("7")
     stream_narrow, demo_wide = phase_streaming_and_demos(torch, card)
     lap("8")
-    mixed, mixed_launches = phase_routes(torch, np, card)
+    mixed, mixed_launches, high_pl_poly = phase_routes(torch, np, card)
     lap("9")
+    poly, poly_launches = phase_polyploid(torch, card)
+    lap("10")
     if args.profile:
         phase_profile(torch, cohort, card, os.path.abspath(args.profile))
     print("phase walls: " + ", ".join(walls))
 
     def entry(name, replaces, form, launches, at=main):
         # times and bound at the main path's largest launch (`at`: the
-        # largest mixed-ploidy launch of phase 9's route cohort)
+        # largest mixed-ploidy launch of phase 9's route cohort, the
+        # largest launch of phase 10's polyploid cohort)
         err, ms, plain_ms, nbytes = at[form]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces, "launches": launches,
@@ -1816,6 +1974,8 @@ def main() -> int:
               c_off["launches"] + mesh_launches + lane_wide + demo_wide),
         entry("fused_gather_remap (mixed ploidy)", f"{PALLAS}:875",
               "narrow+scalars", mixed_launches, at=mixed),
+        entry("fused_gather_remap (ploidy 3-6)", f"{PALLAS}:875",
+              "narrow+scalars", high_pl_poly + poly_launches, at=poly),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

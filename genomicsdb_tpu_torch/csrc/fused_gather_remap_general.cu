@@ -1,0 +1,10 @@
+// The fused gather + remap kernel's general family (ploidy 3-6 in
+// genotype chunks), in its three forms (see fused_gather_remap.cu): a
+// translation unit of its own, which the build compiles beside the
+// others at once.
+
+#include "fused_gather_remap.cuh"
+
+namespace gdb_fgr {
+GDB_FGR_GENERAL(GDB_FGR_DEFINE)
+}  // namespace gdb_fgr

@@ -1,21 +1,24 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
 `load_library()` compiles every `genomicsdb_tpu_torch/csrc/*.cu` into
-one shared library with a plain C interface, at first use:
+one shared library with a plain C interface, at first use: one nvcc per
+source, all started at once (each source holds a few of the kernel's
+instantiations), then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library lands in `build/genomicsdb_tpu_torch/` under the checkout,
-named by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads the cached file.  The first build runs under
-two locks: a thread lock, so that threads of one process (the stream
-server's connections) that launch at once build and load it once, and
-an `fcntl.flock` on `BUILD_DIR/build.lock`, so that processes that start
-at once (mesh ranks, rank workers) run nvcc once and the others load
-the file it wrote (`os.replace` puts it in place whole).  Nothing is
-compiled when a module is imported: the CPU test suite imports every
-module on machines with no nvcc.
+named by a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one loads the cached file.  The first build
+runs under two locks: a thread lock, so that threads of one process (the
+stream server's connections) that launch at once build and load it
+once, and an `fcntl.flock` on `BUILD_DIR/build.lock`, so that processes
+that start at once (mesh ranks, rank workers) run nvcc once and the
+others load the file it wrote (`os.replace` puts it in place whole).
+Nothing is compiled when a module is imported: the CPU test suite
+imports every module on machines with no nvcc.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -37,8 +41,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genomicsdb_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _BUILD_LOCK = threading.Lock()
 
 
@@ -66,8 +72,9 @@ def _nvcc() -> str:
 
 
 def _source_hash(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for s in [*srcs, *headers]:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode())
             h.update(f.read())
@@ -105,19 +112,30 @@ def _load_library() -> KernelLibrary:
 
 
 def _build(srcs, path: str):
-    """nvcc of `srcs` into `path`: (seconds, nvcc's report)."""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    """nvcc of `srcs` into `path`: each source compiled at once by its own
+    nvcc, then linked.  Returns (seconds, nvcc's reports)."""
+    tmp_dir = tempfile.mkdtemp(dir=BUILD_DIR)
+    objs = [os.path.join(tmp_dir, f"{i}.o") for i in range(len(srcs))]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-o", o, s] for o, s in zip(objs, srcs)]
+    tmp = os.path.join(tmp_dir, "lib.so")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_s = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)
+    try:
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            results = list(pool.map(lambda c: subprocess.run(
+                c, capture_output=True, text=True), cmds))
+        if all(r.returncode == 0 for r in results):
+            cmds.append([_nvcc(), *LINK_FLAGS, "-o", tmp, *objs])
+            results.append(subprocess.run(cmds[-1], capture_output=True,
+                                          text=True))
+        build_s = time.perf_counter() - t0
+        log = "".join(r.stdout + r.stderr for r in results)
+        for cmd, r in zip(cmds, results):
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return build_s, log
 
 

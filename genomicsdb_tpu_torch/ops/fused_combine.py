@@ -9,6 +9,7 @@ of `genomicsdb_tpu.ops.pallas_combine`).
                           memory layout and grid for one launch
   instantiation           which of the kernel's instantiations a launch
                           takes (the .cu's `dispatch`)
+  launch_plan             tile_plan for one launch's tensors
   _prepare                one launch bound to its outputs (the wrapper
                           and chip_smoke.py's timing call it)
   fused_gather_remap_ref  the plain twin (torch ops, any device)
@@ -322,16 +323,21 @@ def tile_plan(B: int, S: int, M: int, G_out: int, gt_w: int, F: int,
                     **lay)
 
 
-def instantiation(ploidy: int, mixed: bool, M: int) -> Tuple[str, int]:
+def instantiation(ploidy: int, mixed: bool, M: int,
+                  n_chunks: int) -> Tuple[str, int]:
     """The kernel instantiation a launch takes, as the .cu's `dispatch`
-    picks it: (family, bound on M).  "diploid" (ploidy 2, not mixed) and
-    "ploidy2" (largest ploidy at most 2 and mixed, or ploidy 1) at M <= 4,
-    8 or 16; "general" (ploidy 3-6), 0."""
-    bound = 4 if M <= 4 else 8 if M <= 8 else 16
+    picks it from the launch and its plan's PL passes: (family, bound on
+    M).  "diploid" (ploidy 2, not mixed) and "ploidy2" (largest ploidy
+    at most 2 and mixed, or ploidy 1) at M <= 4, 8 or 16; "polyploid"
+    (ploidy 3-6, mixed or not, in one PL pass) at M <= 8 or 16, built
+    per bound on the ploidy (3, 4, and 6 for 5 and 6); "general" (ploidy
+    3-6 in genotype chunks), 0."""
     if ploidy == 2 and not mixed:
-        return "diploid", bound
+        return "diploid", 4 if M <= 4 else 8 if M <= 8 else 16
     if ploidy <= 2:
-        return "ploidy2", bound
+        return "ploidy2", 4 if M <= 4 else 8 if M <= 8 else 16
+    if n_chunks == 1:
+        return "polyploid", 8 if M <= 8 else 16
     return "general", 0
 
 
@@ -376,7 +382,8 @@ def fused_gather_remap(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
     `fused_gather_remap.narrow_launches`, the mixed-ploidy ones in
     `fused_gather_remap.mixed_launches`, those of the ploidy <= 2
     instantiation, mixed or haploid, in
-    `fused_gather_remap.ploidy2_launches`)."""
+    `fused_gather_remap.ploidy2_launches`, those of the polyploid one in
+    `fused_gather_remap.polyploid_launches`)."""
     if narrow_scalars and not narrow:
         raise ValueError("narrow_scalars needs narrow")
     dev = live.device
@@ -396,6 +403,7 @@ fused_gather_remap.launches = 0
 fused_gather_remap.narrow_launches = 0
 fused_gather_remap.mixed_launches = 0
 fused_gather_remap.ploidy2_launches = 0
+fused_gather_remap.polyploid_launches = 0
 
 
 def _launch(*args, **kw):
@@ -404,15 +412,31 @@ def _launch(*args, **kw):
     out, launch = _prepare(*args, **kw)
     if launch is not None:
         launch()
-        fused_gather_remap.launches += 1
+        fg = fused_gather_remap
+        fg.launches += 1
         if kw["narrow"]:
-            fused_gather_remap.narrow_launches += 1
+            fg.narrow_launches += 1
         if kw["mixed"]:
-            fused_gather_remap.mixed_launches += 1
-        if instantiation(kw["ploidy"], kw["mixed"],
-                         kw["max_merged"])[0] == "ploidy2":
-            fused_gather_remap.ploidy2_launches += 1
+            fg.mixed_launches += 1
+        family = instantiation(kw["ploidy"], kw["mixed"], kw["max_merged"],
+                               launch.n_chunks)[0]
+        if family == "ploidy2":
+            fg.ploidy2_launches += 1
+        elif family == "polyploid":
+            fg.polyploid_launches += 1
     return out
+
+
+def launch_plan(pl, live, gt, info_f, info_i, info_fs, *, max_merged,
+                ploidy, mixed, narrow, narrow_scalars,
+                n_sm: int = H100_SMS) -> TilePlan:
+    """The tile plan of one launch on these tensors (`_prepare`'s)."""
+    return tile_plan(live.shape[0], live.shape[1], max_merged,
+                     len(genotype_combo_table(max_merged, ploidy)),
+                     gt.shape[2], info_f.shape[0], info_i.shape[0],
+                     info_fs.shape[0], mixed=bool(mixed),
+                     narrow=bool(narrow),
+                     narrow_scalars=bool(narrow_scalars), n_sm=n_sm)
 
 
 def _prepare(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
@@ -421,8 +445,9 @@ def _prepare(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
              narrow, narrow_scalars):
     """Checks the inputs, allocates the outputs and binds one launch of
     the kernel into them: (outputs, launch), where launch() enqueues the
-    kernel on the caller's stream and raises if it was refused (None
-    when there is nothing to launch)."""
+    kernel on the caller's stream and raises if it was refused, and
+    launch.n_chunks is its plan's PL passes (None when there is nothing
+    to launch)."""
     from ._kernel_build import load_library
     dev = live.device
     S, C, G_in = pl.shape
@@ -456,10 +481,10 @@ def _prepare(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
         _check("gt_len_bs", gt_len_bs, i32, (B, S), dev)
     G_out = len(genotype_combo_table(M, ploidy))
     tables = _device_tables(M, ploidy, bool(mixed), dev)
-    plan_arr = tile_plan(B, S, M, G_out, gt_w, F, Fi, Fs,
-                         mixed=bool(mixed), narrow=bool(narrow),
-                         narrow_scalars=bool(narrow_scalars),
-                         n_sm=_sm_count(dev)).as_array()
+    plan = launch_plan(pl, live, gt, info_f, info_i, info_fs, max_merged=M,
+                       ploidy=ploidy, mixed=mixed, narrow=narrow,
+                       narrow_scalars=narrow_scalars, n_sm=_sm_count(dev))
+    plan_arr = plan.as_array()
     rec_nr = rec_has_nr.to(i32)
     vt = i16 if narrow else i32            # PL / AD / GT
     st = i16 if narrow_scalars else i32    # GQ / DP / MIN_DP
@@ -501,6 +526,7 @@ def _prepare(pl, pl_len, ad, ad_len, gt, gq, dp, min_dp, dp_info, info_f,
 
     # the memory behind the pointers lives as long as the launch does
     launch.keeps = (ins, gt_len_bs, tables, out, plan_arr)
+    launch.n_chunks = plan.n_chunks
     return out, launch
 
 

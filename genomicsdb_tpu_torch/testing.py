@@ -282,7 +282,7 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
                  deletions: bool = True, *,
                  haploid_stretch: bool = False, triploid_every: int = 0,
                  phased_share: float = 0.0, hotspots: int = 0,
-                 high_pl: float = 0.0) -> Cohort:
+                 high_pl: float = 0.0, ploidy: int = 2) -> Cohort:
     """Write the cohort and its JSON configuration under `out_dir`.
     `n_records` is the record count of each group's file; `n_groups`
     (default: about one group per 125 samples, at least 2) sets how
@@ -310,8 +310,19 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
                        alleles; every sample calls them diploid
       high_pl          that share of variant calls has PL values in
                        32,768-60,000, past the int16 range
+      ploidy           every sample is of this ploidy (3-6) throughout,
+                       as an autopolyploid crop's cohort is: variant
+                       calls of that many alleles, reference blocks
+                       `0/0/0/0` with ploidy + 1 PL values; with
+                       phased_share its variant calls are phased too
+                       (the first separator); not with triploid_every
     Each sample draws its cell from a pool of its own ploidy; a
     triploid sample stays triploid in the haploid stretch."""
+    if ploidy != 2 and not 3 <= ploidy <= 6:
+        raise ValueError(f"ploidy must be 2 (the default) or 3-6, got "
+                         f"{ploidy}")
+    if ploidy != 2 and triploid_every:
+        raise ValueError("triploid_every needs the default ploidy 2")
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     if not n_groups:
@@ -340,14 +351,15 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
     # the options' draws come from a generator of their own, so the
     # default cohort's draws stay as they were
     xrng = np.random.default_rng([seed, 1])
-    ploidy = np.full(n_samples, 2)
+    sample_ploidy = np.full(n_samples, ploidy)
     if triploid_every:
-        ploidy[triploid_every - 1::triploid_every] = 3
+        sample_ploidy[triploid_every - 1::triploid_every] = 3
     haploid = np.zeros(n_samples, dtype=bool)
     if haploid_stretch:
-        haploid[1::2] = ploidy[1::2] == 2
+        haploid[1::2] = sample_ploidy[1::2] == 2
     variant_keys = [3, 4]
-    for p in [1] * haploid_stretch + [3] * bool(triploid_every):
+    extra = [1] * haploid_stretch + [3] * bool(triploid_every)
+    for p in extra + [ploidy] * (ploidy != 2):
         pools["ref", p] = _cell_pool(xrng, 512, 2, True, p)
         for key in (3, 4):
             pools[key, p] = _cell_pool(xrng, 512, key, False, p)
@@ -366,9 +378,9 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
             recs, genome, {s: per[g] for s, per in hot.items()},
             insertions, bounds[g + 1] - bounds[g], xrng, pools)
             for g, recs in enumerate(group_recs)]
-    if phased_share:            # the diploid variant pools
+    if phased_share:            # the variant pools of the base ploidy
         for k in variant_keys:
-            if k in (3, 4) or k[0] == "hot":
+            if k in (3, 4) or k[0] == "hot" or k[1] == ploidy != 2:
                 pools[k] = _phase_pool(xrng, pools[k], phased_share)
     if high_pl:
         for k in variant_keys:
@@ -378,7 +390,7 @@ def write_cohort(out_dir: str, n_samples: int, n_records: int,
     starts = set()
     for g, recs in enumerate(group_recs):
         names = [f"S{i}" for i in range(bounds[g], bounds[g + 1])]
-        p_all = ploidy[bounds[g]:bounds[g + 1]]
+        p_all = sample_ploidy[bounds[g]:bounds[g + 1]]
         p_mid = np.where(haploid[bounds[g]:bounds[g + 1]], 1, p_all)
         lines = []
         for pos, _, key, prefix, pick in recs:

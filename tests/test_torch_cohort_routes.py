@@ -16,6 +16,11 @@ device routes (`fused_combine.combine_block`):
      samples (the options of chip_smoke.py's route cohort): diploid
      blocks in the first third, mixed ones in the middle third, general
      ones in the last
+  f  every sample tetraploid (an autotetraploid crop's cohort): the
+     kernel's non-mixed ploidy-4 launches (its polyploid family on the
+     card)
+  g  every sample triploid, with a share of phased calls: non-mixed
+     ploidy-3 launches of phased GT storage
 
 The files are written twice, into one directory per package, and each
 package imports its copy with its own vcf2gdb.  The port's gdb_query on
@@ -62,6 +67,8 @@ CASES = {
     "d": dict(haploid_stretch=True, triploid_every=5, phased_share=0.3,
               hotspots=6),
     "e": dict(haploid_stretch=True, phased_share=0.3, hotspots=6),
+    "f": dict(ploidy=4),
+    "g": dict(ploidy=3, phased_share=0.3),
 }
 SIZE = dict(n_samples=24, n_records=150, seed=11, n_groups=4)
 COUNTERS = ("blocks", "mixed_blocks", "general_path_blocks",
@@ -155,10 +162,14 @@ def test_port_equals_jax_block_engine(case, routes, monkeypatch):
                                           pack=False)
     packed = _run(torch_gdb_query.main, argv, pack=True)
     got = _since(before)
-    # one chunk: the route of its widest data
-    route = {"a": "mixed_blocks", "c": "wide_blocks_when_packing"}.get(
-        case, "general_path_blocks")
-    assert got[route] == got["blocks"] // (2 if case == "c" else 1) > 0
+    # one chunk: the route of its widest data (a uniform-ploidy cohort's
+    # is the kernel's non-mixed form, counted by none of the three)
+    if case in ("f", "g"):
+        assert got["blocks"] == 2 and sum(got.values()) == 2, got
+    else:
+        route = {"a": "mixed_blocks", "c": "wide_blocks_when_packing"}.get(
+            case, "general_path_blocks")
+        assert got[route] == got["blocks"] // (2 if case == "c" else 1) > 0
     jax_block = routes.oracle(case)
     jax_seq = _run(jax_gdb_query.main, ["-j", jax_c.query,
                                         "--produce-Broad-GVCF",
@@ -173,8 +184,12 @@ def test_port_equals_jax_block_engine(case, routes, monkeypatch):
         assert "." in gts
     if CASES[case].get("triploid_every"):
         assert "././." in gts
-    if CASES[case].get("phased_share"):
-        assert ".|." in gts
+    if "ploidy" in CASES[case]:           # every call of that ploidy
+        p = CASES[case]["ploidy"]            # ("." : a sample with no call)
+        assert {g.replace("|", "/") for g in gts} - {"."} \
+            == {"/".join("." * p)}
+    if CASES[case].get("phased_share"):   # the first separator phased
+        assert ".|." + "/." * (CASES[case].get("ploidy", 2) - 2) in gts
     if CASES[case].get("hotspots"):       # more than 16 merged alleles
         assert max(ln.split("\t")[4].count(",") for ln in lines
                    if not ln.startswith("#")) >= 15

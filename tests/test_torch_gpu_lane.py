@@ -5,8 +5,9 @@ not multiples of the tile), at m 16 / ploidy 6 (PL in genotype chunks)
 and at the largest launch of the 1,000-sample block query; and block
 queries on the card, with the fetch pack on and off, over the socket
 server, on a mesh of rank processes (1x1 on NCCL, 2x1 on gloo
-sharing one card) and on a cohort of haploid, triploid and phased calls
-with hotspots past 16 alleles, against the same query on the CPU.
+sharing one card), on a cohort of haploid, triploid and phased calls
+with hotspots past 16 alleles and on a tetraploid one, against the same
+query on the CPU.
 
 Marked `gpu`; each test skips where torch sees no CUDA card (decided in
 the `cuda` fixture, never at import).  On a machine with a card:
@@ -58,9 +59,12 @@ def _block(S, C, R, m, p, mixed, seed, keep_b=None):
 
 
 # (S, C, R, m, p, mixed, records kept): ragged (999 samples, 1001
-# records against 16 x 16 tiles), m 16 / ploidy 6, and the ploidy <= 2
-# instantiation's haploid-only and mixed launches at each bound on M;
-# mixed launches are phased
+# records against 16 x 16 tiles), m 16 / ploidy 6 (genotype chunks in
+# every form: the general family), the ploidy <= 2 instantiation's
+# haploid-only and mixed launches at each bound on M, and the polyploid
+# family's non-mixed ploidy-4 and mixed ploidy-3 launches at each bound
+# on M (m 16 / ploidy 4, 3,876 genotypes, takes chunks wide and one pass
+# narrow: both families on one shape); mixed launches are phased
 SHAPES = [(64, 256, 16384, 4, 2, False, None),
           (16, 64, 4096, 16, 2, False, None),
           (8, 64, 4096, 4, 6, False, None),
@@ -71,19 +75,30 @@ SHAPES = [(64, 256, 16384, 4, 2, False, None),
           (16, 64, 4096, 8, 1, False, None),
           (16, 64, 4096, 16, 2, True, None),
           (16, 64, 4096, 4, 2, True, None),
-          (16, 64, 4096, 4, 1, True, None)]
+          (16, 64, 4096, 4, 1, True, None),
+          (16, 64, 4096, 8, 4, False, None),
+          (8, 32, 2048, 16, 4, False, 60),
+          (16, 64, 4096, 8, 3, True, None)]
 
 
 def _check_args(args, **kw):
     fg = FC.fused_gather_remap
-    before = (fg.launches, fg.narrow_launches, fg.ploidy2_launches)
+    before = (fg.launches, fg.narrow_launches, fg.ploidy2_launches,
+              fg.polyploid_launches)
     got = FC.fused_gather_remap(*args, **kw)
     torch.cuda.synchronize()
     narrow = int(kw.get("narrow", False))
-    ploidy2 = int(FC.instantiation(kw["ploidy"], kw["mixed"],
-                                   kw["max_merged"])[0] == "ploidy2")
-    assert (fg.launches, fg.narrow_launches, fg.ploidy2_launches) == (
-        before[0] + 1, before[1] + narrow, before[2] + ploidy2)
+    plan = FC.launch_plan(args[0], args[12], args[4], *args[9:12],
+                          max_merged=kw["max_merged"], ploidy=kw["ploidy"],
+                          mixed=kw["mixed"], narrow=narrow,
+                          narrow_scalars=kw.get("narrow_scalars", False))
+    family = FC.instantiation(kw["ploidy"], kw["mixed"], kw["max_merged"],
+                              plan.n_chunks)[0]
+    assert (fg.launches, fg.narrow_launches, fg.ploidy2_launches,
+            fg.polyploid_launches) == (
+        before[0] + 1, before[1] + narrow,
+        before[2] + (family == "ploidy2"),
+        before[3] + (family == "polyploid"))
     ref = FC.fused_gather_remap_ref(*args, **kw)
     for key, r in ref.items():
         g = got[key]
@@ -238,6 +253,48 @@ def test_route_cohort_on_the_card(cuda, tmp_path, monkeypatch):
                                          pack=pack)
         assert FC.fused_gather_remap.mixed_launches > 0
         assert FC.combine_block.general_path_blocks > 0
+        assert got == on_cpu
+
+
+def test_polyploid_cohort_on_the_card(cuda, tmp_path, monkeypatch):
+    """A small autotetraploid cohort (`write_cohort(..., ploidy=4)`) end
+    to end on the card: gdb_query's one chunk and chunks of 40 records,
+    pack on and off, give the CPU device's text, and every kernel launch
+    is the polyploid family's."""
+    from genomicsdb_tpu_torch.core.config import QueryParams
+    from genomicsdb_tpu_torch.core.vid import VidMapper
+    from genomicsdb_tpu_torch.query import driver
+    from genomicsdb_tpu_torch.store import workspace as ws
+    from genomicsdb_tpu_torch.testing import write_cohort
+    from genomicsdb_tpu_torch.tools import gdb_query, vcf2gdb
+    monkeypatch.setenv("GENOMICSDB_TPU_SERVING_INDEX", "0")
+    c = write_cohort(str(tmp_path), 48, 200, seed=4, n_groups=4, ploidy=4)
+    vcf2gdb.main([c.loader])
+
+    def run(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gdb_query.main(["-j", c.query, "--produce-Broad-GVCF",
+                            "--device", device])
+        return buf.getvalue()
+
+    fg = FC.fused_gather_remap
+    on_cpu = run("cpu")
+    fg.launches = fg.polyploid_launches = 0
+    assert on_cpu and run("cuda") == on_cpu
+    assert fg.launches == fg.polyploid_launches > 0
+    qp = QueryParams.from_file(c.query, 0)
+    vid = VidMapper.from_files(c.vid, c.callsets)
+    store = ws.open_array(c.workspace, c.array)
+    for pack in (True, False):
+        fg.launches = fg.polyploid_launches = fg.narrow_launches = 0
+        qc = driver.make_query_config(qp, vid)
+        got = driver.run_vcf_query_block(store, qc, qp, vid,
+                                         torch.device("cuda:0"),
+                                         max_records_per_block=40,
+                                         pack=pack)
+        assert fg.launches == fg.polyploid_launches > 1
+        assert fg.narrow_launches == (fg.launches if pack else 0)
         assert got == on_cpu
 
 

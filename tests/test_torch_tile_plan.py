@@ -9,7 +9,8 @@ genotype; the Python plan and the kernel's `Plan` struct list the same
 fields in the same order; the ctypes binding matches the C signature;
 the Python mirror of the kernel's `dispatch` (`instantiation`) picks
 the instantiation the .cu's text picks, for every launch the kernel
-takes.
+takes; every one-pass plan of ploidy 3-6 gives each of the polyploid
+family's 256 threads a run of genotypes.
 """
 
 import math
@@ -25,6 +26,7 @@ from genomicsdb_tpu_torch.ops import fused_combine as FC
 from genomicsdb_tpu_torch.ops.cell_block import genotype_combo_table
 
 CU = os.path.join(KB.CSRC_DIR, "fused_gather_remap.cu")
+CUH = os.path.join(KB.CSRC_DIR, "fused_gather_remap.cuh")
 FORMS = {"wide": (False, False), "narrow": (True, False),
          "narrow_scalars": (True, True)}
 SHAPES = ((1, 1), (37, 5), (300, 130))      # (B, S), ragged on purpose
@@ -208,7 +210,7 @@ def _c_struct_fields(src, name):
 
 
 def test_plan_fields_match_the_kernel_struct():
-    with open(CU) as f:
+    with open(CUH) as f:
         src = f.read()
     assert _c_struct_fields(src, "Plan") == FC.PLAN_FIELDS
     plan = FC.tile_plan(64, 64, 4, 10, 2, 1, 1, 1, mixed=False,
@@ -243,15 +245,16 @@ def test_binding_matches_the_c_signature():
 
 def _c_dispatch(src):
     """The .cu's `dispatch` body as a Python function of (ploidy, mixed,
-    M, n_chunks): (family, bound on M) of the instantiation it launches,
-    or None where it refuses the launch.  Each line of the body is one
-    of `if (cond) {`, `}`, `[if (cond)] return launch<VT, ST, kFamily,
-    kM>(a, p, st);` or `[if (cond)] return cudaErrorInvalidValue;`."""
+    M, n_chunks): (family, bound on M, bound on the ploidy or 0) of the
+    instantiation it launches, or None where it refuses the launch.
+    Each line of the body is one of `if (cond) {`, `}`, `[if (cond)]
+    return launch<VT, ST, kFamily, kM[, kP]>(a, p, st);` or `[if (cond)]
+    return cudaErrorInvalidValue;`."""
     body = re.search(r"cudaError_t dispatch\(const Args& a, const Plan& p, "
                      r"cudaStream_t st\) \{\n(.*?)\n\}\n", src,
                      re.S).group(1)
     families = {"kGeneral": "general", "kDiploid": "diploid",
-                "kPloidy2": "ploidy2"}
+                "kPloidy2": "ploidy2", "kPolyploid": "polyploid"}
 
     def cond(c):
         c = c.replace("&&", " and ").replace("||", " or ")
@@ -259,10 +262,11 @@ def _c_dispatch(src):
         return re.sub(r"\b[ap]\.", "", c)
 
     def ret(r):
-        m = re.fullmatch(r"return launch<VT, ST, (\w+), (\d+)>\(a, p, "
-                         r"st\);", r)
+        m = re.fullmatch(r"return launch<VT, ST, (\w+), (\d+)(?:, (\d+))?>"
+                         r"\(a, p, st\);", r)
         if m:
-            return f"return ({families[m.group(1)]!r}, {m.group(2)})"
+            return (f"return ({families[m.group(1)]!r}, {m.group(2)}, "
+                    f"{m.group(3) or 0})")
         assert r == "return cudaErrorInvalidValue;", r
         return "return None"
 
@@ -296,37 +300,89 @@ def test_instantiation_mirrors_the_kernel_dispatch():
     takes, the instantiation the .cu's `dispatch` launches: diploid
     non-mixed launches keep their three instantiations, every launch of
     ploidy <= 2 that is mixed, and every haploid one, takes the ploidy
-    <= 2 family at the same bounds on M, ploidy 3-6 the general one; a
-    ploidy <= 2 launch in more than one PL pass is refused."""
+    <= 2 family at the same bounds on M; ploidy 3-6 in one PL pass the
+    polyploid family at M <= 8 or 16, built for ploidy 3, 4 or 6 (5
+    runs as 6), and in genotype chunks the general one; a ploidy <= 2
+    launch in more than one PL pass is refused."""
     with open(CU) as f:
         dispatch = _c_dispatch(f.read())
     seen = set()
     for ploidy in range(1, FC.MAX_PLOIDY + 1):
         for mixed in (False, True):
             for M in range(1, FC.MAX_MERGED + 1):
-                got = FC.instantiation(ploidy, mixed, M)
-                assert dispatch(ploidy, mixed, M, 1) == got
-                seen.add(got)
-                bound = 4 if M <= 4 else 8 if M <= 8 else 16
-                if ploidy == 2 and not mixed:
-                    assert got == ("diploid", bound)
-                elif ploidy <= 2:
-                    assert got == ("ploidy2", bound)
-                    assert dispatch(ploidy, mixed, M, 2) is None
-                else:
-                    assert got == ("general", 0)
-    assert seen == {(f, m) for f in ("diploid", "ploidy2")
-                    for m in (4, 8, 16)} | {("general", 0)}
+                for n_chunks in (1, 2):
+                    got = FC.instantiation(ploidy, mixed, M, n_chunks)
+                    want = dispatch(ploidy, mixed, M, n_chunks)
+                    bound = 4 if M <= 4 else 8 if M <= 8 else 16
+                    if ploidy == 2 and not mixed:
+                        assert got == ("diploid", bound)
+                    elif ploidy <= 2:
+                        assert got == ("ploidy2", bound)
+                        if n_chunks > 1:
+                            assert want is None
+                            continue
+                    elif n_chunks == 1:
+                        assert got == ("polyploid", 8 if M <= 8 else 16)
+                        assert want[2] == {3: 3, 4: 4}.get(ploidy, 6)
+                    else:
+                        assert got == ("general", 0)
+                    assert want[:2] == got
+                    seen.add(want)
+    assert seen == {(f, m, 0) for f in ("diploid", "ploidy2")
+                    for m in (4, 8, 16)} | {("general", 0, 0)} | {
+        ("polyploid", m, p) for m in (8, 16) for p in (3, 4, 6)}
+
+
+def test_instantiations_are_built_once_each():
+    """Every instantiation `dispatch` launches is built by exactly one
+    family's source (`GDB_FGR_<FAMILY>(GDB_FGR_DEFINE)`), from the
+    header's lists, and declared `extern` for the other units."""
+    with open(CUH) as f:
+        hdr = f.read()
+    lists = dict(re.findall(r"#define GDB_FGR_(\w+)\(X\) (.*?)\n(?!\s)",
+                            hdr.replace("\\\n", " "), re.S))
+    built = []
+    for src in KB.sources():
+        with open(src) as f:
+            text = f.read()
+        for fam in re.findall(r"^GDB_FGR_(\w+)\(GDB_FGR_DEFINE\)$", text,
+                              re.M):
+            built += re.findall(r"X\((\w+), (\d+), (\d+)\)", lists[fam])
+        if os.path.basename(src) != "fused_gather_remap.cu":
+            assert "dispatch" not in text
+    assert len(built) == len(set(built)) == 13
+    for fam in lists:
+        if fam not in ("FORM", "FORMS", "DEFINE", "EXTERN"):
+            assert f"GDB_FGR_{fam}(GDB_FGR_EXTERN)" in hdr
+    with open(CU) as f:
+        dispatch = _c_dispatch(f.read())
+    families = {"diploid": "kDiploid", "ploidy2": "kPloidy2",
+                "general": "kGeneral", "polyploid": "kPolyploid"}
+    for ploidy in range(1, FC.MAX_PLOIDY + 1):
+        for mixed in (False, True):
+            for M in range(1, FC.MAX_MERGED + 1):
+                for n_chunks in (1, 2):
+                    want = dispatch(ploidy, mixed, M, n_chunks)
+                    if want is not None:
+                        fam, m, p = want
+                        assert (families[fam], str(m), str(p)) in built
+
+
+def _fake_prepare(n_chunks):
+    """A stand-in for `_prepare`: a bound launch that runs nothing, with
+    its plan's PL passes."""
+    def prepare(*args, **kw):
+        launch = lambda: None           # noqa: E731
+        launch.n_chunks = n_chunks
+        return {}, launch
+    return prepare
 
 
 def test_launch_counts_the_ploidy2_instantiation(monkeypatch):
     """`_launch` counts a launch of the ploidy <= 2 instantiation, mixed
     or haploid, in `ploidy2_launches`, and no other (a bound launch
     that runs nothing stands in for the kernel)."""
-    def prepare(*args, **kw):
-        return {}, lambda: None
-
-    monkeypatch.setattr(FC, "_prepare", prepare)
+    monkeypatch.setattr(FC, "_prepare", _fake_prepare(1))
     fg = FC.fused_gather_remap
     for ploidy, mixed, counted in ((2, False, 0), (2, True, 1),
                                    (1, False, 1), (1, True, 1),
@@ -336,3 +392,66 @@ def test_launch_counts_the_ploidy2_instantiation(monkeypatch):
                    mixed=mixed, narrow=True, narrow_scalars=True)
         assert (fg.launches, fg.ploidy2_launches) == (
             before[0] + 1, before[1] + counted)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3])
+def test_launch_counts_the_polyploid_instantiation(monkeypatch, n_chunks):
+    """`_launch` counts a launch of ploidy 3-6 in one PL pass, mixed or
+    not, in `polyploid_launches`; one in genotype chunks (the general
+    family) and launches of ploidy <= 2 are not counted there."""
+    monkeypatch.setattr(FC, "_prepare", _fake_prepare(n_chunks))
+    fg = FC.fused_gather_remap
+    # (ploidy, mixed, counted as polyploid, counted as ploidy <= 2)
+    for ploidy, mixed, poly, p2 in ((2, False, 0, 0), (2, True, 0, 1),
+                                    (1, False, 0, 1), (3, True, 1, 0),
+                                    (3, False, 1, 0), (4, False, 1, 0),
+                                    (5, True, 1, 0), (6, False, 1, 0)):
+        if n_chunks > 1 and ploidy <= 2:
+            continue                    # refused by the kernel
+        before = (fg.launches, fg.polyploid_launches, fg.ploidy2_launches)
+        FC._launch(max_merged=7, ploidy=ploidy, gt_phase=False,
+                   mixed=mixed, narrow=False, narrow_scalars=False)
+        assert (fg.launches, fg.polyploid_launches, fg.ploidy2_launches) \
+            == (before[0] + 1, before[1] + poly * (n_chunks == 1),
+                before[2] + p2)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("ploidy", [3, 4, 5, 6])
+def test_polyploid_plans_keep_every_thread_busy(ploidy, mixed, form):
+    """Every one-pass plan of ploidy 3-6 (the polyploid family's) over a
+    block of at least 256 (record, sample) pairs splits each pair's PL
+    row among 256 / (tile pairs) threads so that every thread of the
+    block has a run of at least one genotype, at every M: the tetraploid
+    1,000-sample launch (M 7, 210 genotypes) among them.  Rows that do
+    not fit take genotype chunks (the general family)."""
+    narrow, scalars = FORMS[form]
+    gt_w = 2 * ploidy - 1 if mixed else ploidy
+    one_pass = 0
+    for M in range(1, FC.MAX_MERGED + 1):
+        G_out = len(genotype_combo_table(M, ploidy))
+        for B, S in ((1030, 1000), (300, 130), (64, 8), (1000, 4), (16, 16)):
+            plan = FC.tile_plan(B, S, M, G_out, gt_w, 1, 1, 1, mixed=mixed,
+                                narrow=narrow, narrow_scalars=scalars)
+            if B * S < 100_000:          # the coverage check is per element
+                _check_plan(plan, B, S, G_out)
+            if plan.n_chunks > 1:
+                assert FC.instantiation(ploidy, mixed, M, plan.n_chunks) \
+                    == ("general", 0)
+                continue
+            one_pass += 1
+            assert plan.gc == G_out
+            nbs = plan.tb * plan.ts
+            parts = FC.THREADS // nbs
+            run = -(-G_out // parts)
+            assert parts * nbs == FC.THREADS
+            assert (parts - 1) * run < G_out       # the last run not empty
+            # the polyploid term table fits the general family's header
+            # and term table (6 rows of 65 ints)
+            assert plan.off_cell - plan.off_hdr >= 4 * 6 * 65
+    assert one_pass >= 5 * 7
+    if ploidy == 4 and not mixed:
+        plan = FC.tile_plan(1030, 1000, 7, 210, 4, 1, 1, 1, mixed=False,
+                            narrow=narrow, narrow_scalars=scalars)
+        assert plan.n_chunks == 1
