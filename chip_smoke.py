@@ -784,8 +784,8 @@ def phase_serving(torch, np, c, card, main_text):
     concurrent clients, the CPU device, the paged stream and the
     out-of-core windows; holds the engine lane's most frequent launch
     against the twin in every form."""
+    from genomicsdb_tpu_torch.core.profile import COUNTS
     from genomicsdb_tpu_torch.ops import fused_combine as FC
-    from genomicsdb_tpu_torch.ops.combine_step import to_tensor
     from genomicsdb_tpu_torch.query import driver as D
     from genomicsdb_tpu_torch.query import serving_index as si
     from genomicsdb_tpu_torch.query import stream_server as SS
@@ -815,10 +815,11 @@ def phase_serving(torch, np, c, card, main_text):
         with SS.QueryStreamClient(*addr, timeout=600) as cli:
             h2d = []
             for lo in warm_los:
-                to_tensor.h2d_bytes = 0
+                h2d0 = COUNTS.h2d_bytes
                 t0 = time.perf_counter()
                 cli.query(doc(lo))
-                h2d.append((to_tensor.h2d_bytes, time.perf_counter() - t0))
+                h2d.append((COUNTS.h2d_bytes - h2d0,
+                            time.perf_counter() - t0))
             launch = FC._launch
 
             def recorder(*args, **kw):
@@ -1088,7 +1089,6 @@ def phase_distribution(torch, np, c, card, main_text, largest):
     2x2 shard launch against the twin, --parallel-ranks against
     --num-ranks on 4 partitions, and a 2-process blob gather.  Returns
     the kernel launches of the mesh ranks."""
-    from genomicsdb_tpu_torch.ops.combine_step import to_tensor
     from genomicsdb_tpu_torch.parallel import comm
     from genomicsdb_tpu_torch.parallel import sharded as TS
     from genomicsdb_tpu_torch.query.block_writer import (
@@ -1183,7 +1183,6 @@ def phase_distribution(torch, np, c, card, main_text, largest):
     loader, query = _four_partitions(np, c)
     part = ["-j", query, "-l", loader, "--produce-Broad-GVCF", "--device",
             "cuda", "--num-ranks", "4"]
-    to_tensor.h2d_bytes = 0
     t0 = time.perf_counter()
     spawned = _query(part + ["--parallel-ranks"])
     t_spawned = time.perf_counter() - t0
@@ -1841,15 +1840,12 @@ def phase_polyploid(torch, card):
     off, t_off, k_off = _counted_query(torch, cuda, pack=False)
     # the cpu device's query counts the records the block engine renders
     # and those it splices from the sequential engine
-    profile.ENABLED = True
-    profile.GLOBAL_STATS.counters.clear()
+    names = ("block_records", "spliced_records")
+    before = {k: getattr(profile.COUNTS, k) for k in names}
     t0 = time.perf_counter()
-    try:
-        on_cpu = _query(base + ["--device", "cpu"])
-    finally:
-        profile.ENABLED = False
+    on_cpu = _query(base + ["--device", "cpu"])
     t_cpu = time.perf_counter() - t0
-    stats = dict(profile.GLOBAL_STATS.counters)
+    stats = {k: getattr(profile.COUNTS, k) - before[k] for k in names}
     records = warm.count("\n")
     print(f"polyploid block query: {records} records; cuda pack on cold "
           f"{t_cold:.3f} s, warm {t_warm:.3f} s; pack off {t_off:.3f} s; "

@@ -37,6 +37,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from functools import lru_cache
 
+from ..core import profile
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -113,7 +115,14 @@ def _load_library() -> KernelLibrary:
 
 def _build(srcs, path: str):
     """nvcc of `srcs` into `path`: each source compiled at once by its own
-    nvcc, then linked.  Returns (seconds, nvcc's reports)."""
+    nvcc, then linked.  Returns (seconds, nvcc's reports).  Timed as the
+    span `build.kernel`, counted in `COUNTS.kernel_builds`."""
+    profile.count("kernel_builds")
+    with profile.span("build.kernel"):
+        return _nvcc_build(srcs, path)
+
+
+def _nvcc_build(srcs, path: str):
     tmp_dir = tempfile.mkdtemp(dir=BUILD_DIR)
     objs = [os.path.join(tmp_dir, f"{i}.o") for i in range(len(srcs))]
     cmds = [[_nvcc(), *NVCC_FLAGS, "-o", o, s] for o, s in zip(objs, srcs)]

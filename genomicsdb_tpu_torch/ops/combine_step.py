@@ -46,7 +46,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import formats
+from ..core import formats, profile
 
 from . import torch_kernels as K
 from .cell_block import genotype_combo_table
@@ -416,8 +416,9 @@ def block_to_tensors(blk, device) -> tuple:
     slabs = (blk.pl, blk.pl_len, blk.ad, blk.ad_len,
              blk.gt, blk.gq, blk.dp, blk.min_dp, blk.dp_info, blk.info_f,
              blk.info_i, blk.info_fs)
-    return _slab_tensors(blk, slabs, device) \
-        + tuple(to_tensor(a, device) for a in per_block_arrays(blk))
+    with profile.span("device.upload"):
+        return _slab_tensors(blk, slabs, device) \
+            + tuple(to_tensor(a, device) for a in per_block_arrays(blk))
 
 
 def per_block_arrays(blk) -> tuple:
@@ -447,7 +448,8 @@ def _slab_tensors(blk, slabs, device) -> tuple:
     hit = lay.get(key)
     if hit is not None and all(a is b for a, b in zip(hit[0], slabs)):
         return hit[1]
-    tensors = tuple(to_tensor(a, device) for a in slabs)
+    with profile.rebuild("slab_upload"):
+        tensors = tuple(to_tensor(a, device) for a in slabs)
     lay[key] = (slabs, tensors)
     return tensors
 
@@ -456,16 +458,13 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     """numpy -> tensor on `device` (read-only arrays, e.g. memory-mapped
     store columns, are copied first: torch wants writable memory).
     Counts the bytes copied to a device other than the CPU in
-    `to_tensor.h2d_bytes`."""
+    `profile.COUNTS.h2d_bytes`."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()
     if torch.device(device).type != "cpu":
-        to_tensor.h2d_bytes += a.nbytes
+        profile.count("h2d_bytes", a.nbytes)
     return torch.from_numpy(a).to(device)
-
-
-to_tensor.h2d_bytes = 0
 
 
 # ---------------- device->host fetch compaction ----------------
@@ -535,7 +534,12 @@ def pack_outputs(out: Dict[str, torch.Tensor],
     after the copy that the fetch waits on (the JAX writer's
     `copy_to_host_async`).  Returns {"__blob__", "__layout__"} (plus
     "__host__" and "__ready__" on CUDA), or None when `out` holds no
-    packable tensor."""
+    packable tensor.  Timed as the span `device.pack`."""
+    with profile.span("device.pack"):
+        return _pack_outputs(out, rows)
+
+
+def _pack_outputs(out, rows):
     packable = {k: v for k, v in out.items()
                 if k in PACK_SPECS and k != "live"}
     if not packable:
@@ -584,13 +588,15 @@ def _host_blob(packed: Dict) -> np.ndarray:
     host = packed.get("__host__")
     if host is None:
         return packed["__blob__"].numpy()
-    packed["__ready__"].synchronize()
+    with profile.span("device.fetch.wait"):
+        packed["__ready__"].synchronize()
     return host.numpy()
 
 
 def _fetch_whole(v: torch.Tensor) -> np.ndarray:
     fetch_outputs.fetched_bytes += v.numel() * v.element_size()
-    return v.cpu().numpy()
+    with profile.span("device.fetch.wait"):
+        return v.cpu().numpy()
 
 
 def _unpack_blob(blob: np.ndarray, layout) -> Dict[str, np.ndarray]:
@@ -641,7 +647,13 @@ def fetch_outputs(out: Dict[str, torch.Tensor],
     pack_outputs), narrow tensors come from the blob and are widened on
     the host; an int32 original is fetched only if its values
     overflowed.  Every fetch (this one, fetch_outputs_split) adds the
-    bytes it copies to the host to `fetch_outputs.fetched_bytes`."""
+    bytes it copies to the host to `fetch_outputs.fetched_bytes`.
+    Timed as the span `device.fetch`."""
+    with profile.span("device.fetch"):
+        return _fetch_outputs(out, packed)
+
+
+def _fetch_outputs(out, packed):
     if packed is None:
         return {k: _fetch_whole(v) for k, v in out.items()}
     got, narrow = _fetch_blob_tree(out, packed)
@@ -670,7 +682,12 @@ def fetch_outputs_split(out: Dict[str, torch.Tensor], packed: Dict,
     `fill(full_arrays) -> bool` that writes the ref rows straight into
     the preallocated full arrays (the native scatter path), and returns
     the dict when called with None.  Reductions and int32 overflow
-    fallbacks come back full."""
+    fallbacks come back full.  Timed as the span `device.fetch`."""
+    with profile.span("device.fetch"):
+        return _fetch_outputs_split(out, packed, var_rows, ref_rows, ident)
+
+
+def _fetch_outputs_split(out, packed, var_rows, ref_rows, ident):
     from ..runtime import native_loader
     got, narrow = _fetch_blob_tree(
         {k: v for k, v in out.items() if k != "live"}, packed)

@@ -35,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import formats
+from ..core import formats, profile
 
 from .cell_block import genotype_combo_table
 from .combine_step import (INT16_MISSING, INT16_VECTOR_END, _reduce_math,
@@ -87,13 +87,14 @@ def _range_check(blk, key: str, names) -> bool:
     block whose slabs are other arrays is checked anew."""
     arrays = tuple(getattr(blk, n) for n in names)
     lay = getattr(blk, "_dense_layout", None)
-    if lay is not None:
-        hit = lay.get(key)
-        if hit is not None and all(a is b for a, b in zip(hit[0], arrays)):
-            return hit[1]
-    ok = _fits_int16(arrays)
-    if lay is not None:
-        lay[key] = (arrays, ok)
+    if lay is None:
+        return _fits_int16(arrays)
+    hit = lay.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], arrays)):
+        return hit[1]
+    with profile.rebuild("range_check"):
+        ok = _fits_int16(arrays)
+    lay[key] = (arrays, ok)
     return ok
 
 
@@ -641,23 +642,25 @@ def combine_block(blk, device, *, max_merged: int, ploidy: int,
     in `combine_block.general_path_blocks`, the kernel blocks that
     asked for the narrow form but took the wide one (values past the
     int16 range) in `combine_block.wide_blocks_when_packing`, and the
-    kernel blocks of mixed ploidy in `combine_block.mixed_blocks`."""
+    kernel blocks of mixed ploidy in `combine_block.mixed_blocks`.
+    Timed as the span `device.combine`: the upload, the launch and the
+    torch post-pass as the host enqueues them."""
     combine_block.blocks += 1
-    out = combine_step_fused(blk, device, max_merged=max_merged,
-                             ploidy=ploidy, gt_phase=gt_phase,
-                             mixed_ploidy=mixed_ploidy, med_rows=med_rows,
-                             narrow_out=narrow_out)
-    if out is None:
-        combine_block.general_path_blocks += 1
-        out = combine_step(*block_to_tensors(blk, device),
-                           med_rows=med_rows, max_merged=max_merged,
-                           ploidy=ploidy, gt_phase=gt_phase,
-                           mixed_ploidy=mixed_ploidy)
-    else:
-        if narrow_out and out["pl"].dtype != torch.int16:
-            combine_block.wide_blocks_when_packing += 1
-        if mixed_ploidy:
-            combine_block.mixed_blocks += 1
+    with profile.span("device.combine"):
+        out = combine_step_fused(blk, device, max_merged=max_merged,
+                                 ploidy=ploidy, gt_phase=gt_phase,
+                                 mixed_ploidy=mixed_ploidy,
+                                 med_rows=med_rows, narrow_out=narrow_out)
+        if out is None:
+            combine_block.general_path_blocks += 1
+            return combine_step(*block_to_tensors(blk, device),
+                                med_rows=med_rows, max_merged=max_merged,
+                                ploidy=ploidy, gt_phase=gt_phase,
+                                mixed_ploidy=mixed_ploidy)
+    if narrow_out and out["pl"].dtype != torch.int16:
+        combine_block.wide_blocks_when_packing += 1
+    if mixed_ploidy:
+        combine_block.mixed_blocks += 1
     return out
 
 

@@ -24,6 +24,7 @@ import numpy as np
 
 from ..core import formats
 from ..core import known_fields as kf
+from ..core import profile
 from ..core.config import QueryConfig
 from ..store.columnar import ColumnarStore
 from . import merge as M
@@ -82,7 +83,8 @@ def _eff_valid_store(store, name, n_cells):
     ev = cache.get(name)
     if ev is None:
         from ..query.block_fields import effective_valid
-        ev = effective_valid(store.fields.get(name), n_cells)
+        with profile.rebuild("eff_valid"):
+            ev = effective_valid(store.fields.get(name), n_cells)
         cache[name] = ev
     return ev
 
@@ -96,8 +98,13 @@ def _string_codes_cached(store, name, fd):
     if cache is None:
         cache = store._str_code_cache = {}
     got = cache.get(name)
-    if got is not None:
-        return got
+    if got is None:
+        with profile.rebuild("string_codes"):
+            got = cache[name] = _string_codes(fd)
+    return got
+
+
+def _string_codes(fd):
     n = len(fd.offsets) - 1 if fd.offsets is not None else 0
     lens = np.diff(fd.offsets) if n else np.zeros(0, dtype=np.int64)
     codes = np.full(n, -1, dtype=np.int64)
@@ -127,9 +134,7 @@ def _string_codes_cached(store, name, fd):
                                       return_inverse=True)
         codes[sel] = len(uniq) + inv
         uniq.extend(bytes(mat[i].tobytes()).decode() for i in first)
-    got = (codes, uniq)
-    cache[name] = got
-    return got
+    return codes, uniq
 
 
 def record_starts(store: ColumnarStore, qc: QueryConfig,
@@ -148,12 +153,13 @@ def record_starts(store: ColumnarStore, qc: QueryConfig,
         cache = store._events_cache = {}
     events_all = cache.get(rows_key)
     if events_all is None:
-        sel = np.isin(store.row, list(rows_key)) if store.num_cells \
-            else np.zeros(0, dtype=bool)
-        col = store.col[sel]
-        end = store.eff_end[sel]
-        events_all = np.unique(np.concatenate([col, end + 1])) \
-            if len(col) else np.zeros(0, dtype=np.int64)
+        with profile.rebuild("events"):
+            sel = np.isin(store.row, list(rows_key)) if store.num_cells \
+                else np.zeros(0, dtype=bool)
+            col = store.col[sel]
+            end = store.eff_end[sel]
+            events_all = np.unique(np.concatenate([col, end + 1])) \
+                if len(col) else np.zeros(0, dtype=np.int64)
         cache[rows_key] = events_all
     lo, hi = interval
     i = np.searchsorted(events_all, lo, side="left")
@@ -203,10 +209,11 @@ def _block_ploidy(store: ColumnarStore, qc: QueryConfig,
         pl_max = getattr(store, "_gt_ploidy_max_cache", None)
         if pl_max is None:
             # distinct stored GT lengths are a handful; never loop cells
-            glens0 = gt_fd0.lens()
-            uniq = np.unique(glens0[gt_fd0.valid & (glens0 > 0)])
-            pl_max = max((int(gt_info0.length.ploidy(int(g)))
-                          for g in uniq), default=ploidy)
+            with profile.rebuild("gt_ploidy"):
+                glens0 = gt_fd0.lens()
+                uniq = np.unique(glens0[gt_fd0.valid & (glens0 > 0)])
+                pl_max = max((int(gt_info0.length.ploidy(int(g)))
+                              for g in uniq), default=ploidy)
             store._gt_ploidy_max_cache = pl_max
         if 0 < pl_max <= PLOIDY_CAP:
             ploidy = max(ploidy, pl_max)
@@ -242,6 +249,14 @@ def dense_layout(store: ColumnarStore, qc: QueryConfig, plan,
     cache = getattr(store, "_dense_layout_cache", None)
     if cache is not None and cache[0] == key:
         return cache[1]
+    with profile.rebuild("dense_layout"):
+        lay = _dense_layout(store, qc, plan, gt_w, pad_cells_to)
+    store._dense_layout_cache = (key, lay)
+    return lay
+
+
+def _dense_layout(store, qc, plan, gt_w, pad_cells_to) -> dict:
+    rows = qc.rows_to_query
     S = len(rows)
     # row-major layout with binary-searchable per-row runs
     row_sorted, sorted_rows, col_by_row, eff_by_row = store.row_layout()
@@ -350,7 +365,6 @@ def dense_layout(store: ColumnarStore, qc: QueryConfig, plan,
     lay["info_i"] = np.stack([scalar_matrix(n)
                               for n in plan.imed_fields]) \
         if plan.imed_fields else np.zeros((0, S, C), np.int32)
-    store._dense_layout_cache = (key, lay)
     return lay
 
 
@@ -369,8 +383,15 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
 
     The dense [S, C] field slabs are STORE-WIDE and cached
     (dense_layout): per-chunk work is the live-index sweep, the allele
-    LUT merge, and the extras gather.
+    LUT merge, and the extras gather.  Timed as the span `block.build`.
     """
+    with profile.span("block.build"):
+        return _store_to_block(store, qc, interval, max_merged, ploidy,
+                               return_meta, pad_records, pad_cells_to)
+
+
+def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
+                    pad_records, pad_cells_to):
     from ..query.block_fields import (build_block_plan,
                                                    effective_valid,
                                                    remap_allele_np)
@@ -408,43 +429,11 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
     N = store.num_cells
     am = getattr(store, "_allele_meta_cache", None)
     if am is None:
-        # store-wide, query-independent: computed once, reused by every
-        # chunk of a genome-scale query
-        ref_len = ref_fd.lens() if N else np.zeros(0, np.int64)
-        alt_len = alt_fd.lens() if N else np.zeros(0, np.int64)
-        ref_ok = ref_fd.valid & (ref_len > 0)
-        alt_ok = alt_fd.valid
-        ref_bytes = np.asarray(ref_fd.values, dtype=np.uint8) \
-            if N and ref_fd.values is not None else np.zeros(0, np.uint8)
-        alt_bytes = np.asarray(alt_fd.values, dtype=np.uint8) \
-            if N and alt_fd.values is not None else np.zeros(0, np.uint8)
-
-        def _first_chars(ok, bytes_arr, offsets):
-            if not len(bytes_arr):
-                return np.zeros(N, np.uint8)
-            idx = np.minimum(offsets[:-1], len(bytes_arr) - 1)
-            return np.where(ok, bytes_arr[idx], 0).astype(np.uint8)
-
-        ref_first = _first_chars(ref_ok, ref_bytes, ref_fd.offsets)
-        alt_first = _first_chars(alt_ok & (alt_len > 0), alt_bytes,
-                                 alt_fd.offsets)
-        if N and len(alt_bytes):
-            pipe_cum = np.concatenate(
-                [[0], np.cumsum(alt_bytes == ord("|"))])
-            alt_npipe = (pipe_cum[alt_fd.offsets[1:]]
-                         - pipe_cum[alt_fd.offsets[:-1]])
-        else:
-            alt_npipe = np.zeros(N, np.int64)
-        # pure ref block: 1-base REF, single ALT == NON_REF ('&')
-        cell_refblock = (ref_ok & alt_ok & (ref_len == 1)
-                         & (alt_npipe == 0) & (alt_first == ord("&")))
-        am = (ref_len, alt_len, ref_ok, alt_ok, ref_bytes, alt_bytes,
-              ref_first, alt_first, cell_refblock)
+        with profile.rebuild("allele_meta"):
+            am = _allele_meta(ref_fd, alt_fd, N)
         store._allele_meta_cache = am
     (ref_len, alt_len, ref_ok, alt_ok, ref_bytes, alt_bytes, ref_first,
      alt_first, cell_refblock) = am
-    # deletions require multi-base REF: decode just those cells
-    cell_hasdel = np.zeros(N, dtype=bool)
     # per-cell REF/ALT string codes (store-cached, vectorized): the
     # allele merge depends only on the (REF, ALT, starting) pattern, so
     # records sharing a pattern compute the merge ONCE via sig_cache
@@ -473,102 +462,13 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
     gt_info = qc.vid.get_field_info("GT")
     _del_key = (tuple(rows), pl_q, gt_q)
     _del_cache = getattr(store, "_del_state_cache", None)
-    if _del_cache is not None and _del_cache[0] == _del_key:
-        cell_hasdel, del_state = _del_cache[1]
-        _del_hit = True
-    else:
-        del_state = {}
-        _del_hit = False
-    present = np.zeros(N, dtype=bool)
-    if N and not _del_hit:
-        present[cell_of[cell_of >= 0]] = True
-    cand = np.nonzero(present & ref_ok & alt_ok & (ref_len > 1))[0] \
-        if not _del_hit else np.zeros(0, dtype=np.int64)
-    if len(cand):
-        # Candidate cells are grouped by their (REF, ALT) byte signature
-        # — cohorts carry few distinct allele strings, so each signature
-        # is parsed ONCE and only the per-cell min-PL deletion choice is
-        # computed, vectorized.  (A deletion-heavy 100-sample cohort has
-        # ~N_samples identical cells per deletion site; the old per-cell
-        # loop dominated store_to_block.)
-        ploidy_cell = np.zeros(N, dtype=np.int64)
-        if gt_q and gt_fd is not None and gt_info is not None:
-            glens_all = gt_fd.lens()
-            uniq_gl = np.unique(glens_all)
-            pu = np.array([gt_info.length.ploidy(int(g)) if g else 0
-                           for g in uniq_gl], dtype=np.int64)
-            ploidy_cell = np.where(
-                gt_fd.valid, pu[np.searchsorted(uniq_gl, glens_all)], 0)
-        pl_have = np.zeros(N, dtype=bool)
-        if pl_q and pl_fd is not None:
-            pl_have = np.asarray(pl_fd.valid, dtype=bool)
-        ro, ao = ref_fd.offsets, alt_fd.offsets
-        rb, ab = ref_bytes.tobytes(), alt_bytes.tobytes()
-        groups: Dict[bytes, List[int]] = {}
-        for ci in cand.tolist():
-            key = rb[ro[ci]:ro[ci + 1]] + b"\x00" + ab[ao[ci]:ao[ci + 1]]
-            groups.setdefault(key, []).append(ci)
-        INT32_TOP = np.int64(2**31 - 1)
-        for key, cis in groups.items():
-            rs, as_ = key.split(b"\x00", 1)
-            r = rs.decode()
-            a = as_.decode().split("|")
-            # contains_deletion (known_field_info.cc:310-319): '*' is
-            # symbolic and does NOT trigger the rewrite by itself
-            if not any((not M.is_symbolic_allele(x)) and len(x) < len(r)
-                       for x in a):
-                continue
-            cia = np.asarray(cis, dtype=np.int64)
-            cell_hasdel[cia] = True
-            base = np.full(len(a) + 1, M.LUT_MISSING, dtype=np.int32)
-            base[0] = 0
-            has_nr = False
-            dels: List[int] = []
-            for i, alt in enumerate(a):
-                if alt == "*" or (not M.is_symbolic_allele(alt)
-                                  and len(alt) < len(r)):
-                    dels.append(i + 1)
-                elif alt.startswith("&"):
-                    base[i + 1] = 2
-                    has_nr = True
-            new_alts = ["*", "&"] if has_nr else ["*"]
-            # "lowest deletion": argmin PL at the homozygous-deletion
-            # genotype, first deletion on ties / no valid PL
-            lowest = np.full(len(cia), dels[0], dtype=np.int64)
-            have = pl_have[cia]
-            if have.any():
-                pv = np.asarray(pl_fd.values)
-                po = pl_fd.offsets
-                dela = np.asarray(dels, dtype=np.int64)
-                pls_c = ploidy_cell[cia]
-                for p in np.unique(pls_c[have]).tolist():
-                    sel = have & (pls_c == p)
-                    rows = cia[sel]
-                    gidx = np.array([M.genotype_index([d] * int(p))
-                                     for d in dels], dtype=np.int64)
-                    plen = po[rows + 1] - po[rows]
-                    ok = gidx[None, :] < plen[:, None]
-                    src = po[rows][:, None] + np.minimum(
-                        gidx[None, :], np.maximum(plen[:, None] - 1, 0))
-                    src = np.minimum(src, max(len(pv) - 1, 0))
-                    vals = np.where(ok, pv[src].astype(np.int64),
-                                    INT32_TOP)
-                    pick = np.argmin(vals, axis=1)
-                    upd = vals[np.arange(len(rows)), pick] < INT32_TOP
-                    lowest[sel] = np.where(upd, dela[pick], dels[0])
-            # one shared (alts, lut, inv) per distinct lowest-del choice
-            var_cache: Dict[int, Tuple[List[str], np.ndarray,
-                                       np.ndarray]] = {}
-            for ci, ld in zip(cis, lowest.tolist()):
-                st = var_cache.get(ld)
-                if st is None:
-                    row = base.copy()
-                    row[ld] = 1
-                    st = (new_alts, row, M.inverse_lut(row, 3))
-                    var_cache[ld] = st
-                del_state[ci] = st
-    if not _del_hit:
-        store._del_state_cache = (_del_key, (cell_hasdel, del_state))
+    if _del_cache is None or _del_cache[0] != _del_key:
+        with profile.rebuild("del_state"):
+            _del_cache = (_del_key, _deletion_states(
+                cell_of, am, ref_fd, alt_fd, gt_fd, pl_fd, gt_info, pl_q,
+                gt_q))
+        store._del_state_cache = _del_cache
+    cell_hasdel, del_state = _del_cache[1]
 
     # --- record starts: events, expanded to SINGLE POSITIONS while any
     # live call contains a deletion (the scan's single-position stepping,
@@ -997,17 +897,18 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
     if N and gt_fd is not None and qc.is_queried("GT"):
         cell_gt_bad = getattr(store, "_gt_bad_cache", None)
         if cell_gt_bad is None:
-            glens = gt_fd.lens()
-            if gt_info is not None:
-                # map stored length -> ploidy via the few distinct
-                # lengths (searchsorted lookup; never a per-cell loop)
-                uniq = np.unique(glens)
-                pl_u = np.array([gt_info.length.ploidy(int(g)) if g
-                                 else 0 for g in uniq], dtype=np.int64)
-                pls = pl_u[np.searchsorted(uniq, glens)]
-            else:
-                pls = glens
-            cell_gt_bad = gt_fd.valid & (pls > PLOIDY_CAP)
+            with profile.rebuild("gt_bad"):
+                glens = gt_fd.lens()
+                if gt_info is not None:
+                    # map stored length -> ploidy via the few distinct
+                    # lengths (searchsorted lookup; never a per-cell loop)
+                    uniq = np.unique(glens)
+                    pl_u = np.array([gt_info.length.ploidy(int(g)) if g
+                                     else 0 for g in uniq], dtype=np.int64)
+                    pls = pl_u[np.searchsorted(uniq, glens)]
+                else:
+                    pls = glens
+                cell_gt_bad = gt_fd.valid & (pls > PLOIDY_CAP)
             store._gt_bad_cache = cell_gt_bad
         rec_hasother |= (live_ok & cell_gt_bad[safe_cm]).any(axis=1)
     gt_len_bs = np.where(live_ok, gt_len_sc[s_grid, live_k],
@@ -1201,6 +1102,142 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
                            cells_mat=cells_mat, valid_core=valid_core,
                            gt_override=gt_override, med_rows=med_rows)
     return blk, meta
+
+
+def _allele_meta(ref_fd, alt_fd, N: int):
+    """Per-cell allele metadata over the REF/ALT bytes: store-wide and
+    query-independent, computed once and reused by every chunk of a
+    genome-scale query."""
+    ref_len = ref_fd.lens() if N else np.zeros(0, np.int64)
+    alt_len = alt_fd.lens() if N else np.zeros(0, np.int64)
+    ref_ok = ref_fd.valid & (ref_len > 0)
+    alt_ok = alt_fd.valid
+    ref_bytes = np.asarray(ref_fd.values, dtype=np.uint8) \
+        if N and ref_fd.values is not None else np.zeros(0, np.uint8)
+    alt_bytes = np.asarray(alt_fd.values, dtype=np.uint8) \
+        if N and alt_fd.values is not None else np.zeros(0, np.uint8)
+
+    def _first_chars(ok, bytes_arr, offsets):
+        if not len(bytes_arr):
+            return np.zeros(N, np.uint8)
+        idx = np.minimum(offsets[:-1], len(bytes_arr) - 1)
+        return np.where(ok, bytes_arr[idx], 0).astype(np.uint8)
+
+    ref_first = _first_chars(ref_ok, ref_bytes, ref_fd.offsets)
+    alt_first = _first_chars(alt_ok & (alt_len > 0), alt_bytes,
+                             alt_fd.offsets)
+    if N and len(alt_bytes):
+        pipe_cum = np.concatenate(
+            [[0], np.cumsum(alt_bytes == ord("|"))])
+        alt_npipe = (pipe_cum[alt_fd.offsets[1:]]
+                     - pipe_cum[alt_fd.offsets[:-1]])
+    else:
+        alt_npipe = np.zeros(N, np.int64)
+    # pure ref block: 1-base REF, single ALT == NON_REF ('&')
+    cell_refblock = (ref_ok & alt_ok & (ref_len == 1)
+                     & (alt_npipe == 0) & (alt_first == ord("&")))
+    return (ref_len, alt_len, ref_ok, alt_ok, ref_bytes, alt_bytes,
+            ref_first, alt_first, cell_refblock)
+
+
+
+def _deletion_states(cell_of, am, ref_fd, alt_fd, gt_fd, pl_fd, gt_info,
+                     pl_q: bool, gt_q: bool):
+    """(cell_hasdel, del_state) of every cell present in the layout's
+    `cell_of`: whether its alleles carry a deletion, and for each such
+    cell its reduced-space alleles, LUT and inverse LUT."""
+    (ref_len, _, ref_ok, alt_ok, ref_bytes, alt_bytes, _, _, _) = am
+    N = len(ref_len)
+    cell_hasdel = np.zeros(N, dtype=bool)
+    del_state = {}
+    present = np.zeros(N, dtype=bool)
+    if N:
+        present[cell_of[cell_of >= 0]] = True
+    cand = np.nonzero(present & ref_ok & alt_ok & (ref_len > 1))[0]
+    if len(cand):
+        # Candidate cells are grouped by their (REF, ALT) byte signature
+        # — cohorts carry few distinct allele strings, so each signature
+        # is parsed ONCE and only the per-cell min-PL deletion choice is
+        # computed, vectorized.  (A deletion-heavy 100-sample cohort has
+        # ~N_samples identical cells per deletion site; the old per-cell
+        # loop dominated store_to_block.)
+        ploidy_cell = np.zeros(N, dtype=np.int64)
+        if gt_q and gt_fd is not None and gt_info is not None:
+            glens_all = gt_fd.lens()
+            uniq_gl = np.unique(glens_all)
+            pu = np.array([gt_info.length.ploidy(int(g)) if g else 0
+                           for g in uniq_gl], dtype=np.int64)
+            ploidy_cell = np.where(
+                gt_fd.valid, pu[np.searchsorted(uniq_gl, glens_all)], 0)
+        pl_have = np.zeros(N, dtype=bool)
+        if pl_q and pl_fd is not None:
+            pl_have = np.asarray(pl_fd.valid, dtype=bool)
+        ro, ao = ref_fd.offsets, alt_fd.offsets
+        rb, ab = ref_bytes.tobytes(), alt_bytes.tobytes()
+        groups: Dict[bytes, List[int]] = {}
+        for ci in cand.tolist():
+            key = rb[ro[ci]:ro[ci + 1]] + b"\x00" + ab[ao[ci]:ao[ci + 1]]
+            groups.setdefault(key, []).append(ci)
+        INT32_TOP = np.int64(2**31 - 1)
+        for key, cis in groups.items():
+            rs, as_ = key.split(b"\x00", 1)
+            r = rs.decode()
+            a = as_.decode().split("|")
+            # contains_deletion (known_field_info.cc:310-319): '*' is
+            # symbolic and does NOT trigger the rewrite by itself
+            if not any((not M.is_symbolic_allele(x)) and len(x) < len(r)
+                       for x in a):
+                continue
+            cia = np.asarray(cis, dtype=np.int64)
+            cell_hasdel[cia] = True
+            base = np.full(len(a) + 1, M.LUT_MISSING, dtype=np.int32)
+            base[0] = 0
+            has_nr = False
+            dels: List[int] = []
+            for i, alt in enumerate(a):
+                if alt == "*" or (not M.is_symbolic_allele(alt)
+                                  and len(alt) < len(r)):
+                    dels.append(i + 1)
+                elif alt.startswith("&"):
+                    base[i + 1] = 2
+                    has_nr = True
+            new_alts = ["*", "&"] if has_nr else ["*"]
+            # "lowest deletion": argmin PL at the homozygous-deletion
+            # genotype, first deletion on ties / no valid PL
+            lowest = np.full(len(cia), dels[0], dtype=np.int64)
+            have = pl_have[cia]
+            if have.any():
+                pv = np.asarray(pl_fd.values)
+                po = pl_fd.offsets
+                dela = np.asarray(dels, dtype=np.int64)
+                pls_c = ploidy_cell[cia]
+                for p in np.unique(pls_c[have]).tolist():
+                    sel = have & (pls_c == p)
+                    rows = cia[sel]
+                    gidx = np.array([M.genotype_index([d] * int(p))
+                                     for d in dels], dtype=np.int64)
+                    plen = po[rows + 1] - po[rows]
+                    ok = gidx[None, :] < plen[:, None]
+                    src = po[rows][:, None] + np.minimum(
+                        gidx[None, :], np.maximum(plen[:, None] - 1, 0))
+                    src = np.minimum(src, max(len(pv) - 1, 0))
+                    vals = np.where(ok, pv[src].astype(np.int64),
+                                    INT32_TOP)
+                    pick = np.argmin(vals, axis=1)
+                    upd = vals[np.arange(len(rows)), pick] < INT32_TOP
+                    lowest[sel] = np.where(upd, dela[pick], dels[0])
+            # one shared (alts, lut, inv) per distinct lowest-del choice
+            var_cache: Dict[int, Tuple[List[str], np.ndarray,
+                                       np.ndarray]] = {}
+            for ci, ld in zip(cis, lowest.tolist()):
+                st = var_cache.get(ld)
+                if st is None:
+                    row = base.copy()
+                    row[ld] = 1
+                    st = (new_alts, row, M.inverse_lut(row, 3))
+                    var_cache[ld] = st
+                del_state[ci] = st
+    return cell_hasdel, del_state
 
 
 def _deletion_gt_override(ci, state, lut2_row, num_merged, non_ref,

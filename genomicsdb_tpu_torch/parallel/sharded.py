@@ -63,7 +63,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core import formats
+from ..core import formats, profile
 from ..ops import fused_combine as FC
 from ..ops.combine_step import block_to_tensors, combine_step, to_tensor
 from ..ops.store_block import dense_layout
@@ -252,7 +252,7 @@ def _shard(mesh: Mesh, tensors, layout, B: int, S: int) -> tuple:
 
 def _upload(t: torch.Tensor, device) -> torch.Tensor:
     if torch.device(device).type != "cpu":
-        to_tensor.h2d_bytes += t.numel() * t.element_size()
+        profile.count("h2d_bytes", t.numel() * t.element_size())
     return t.to(device)
 
 

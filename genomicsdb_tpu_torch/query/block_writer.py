@@ -44,7 +44,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..core import formats
+from ..core import formats, profile
 from ..core import known_fields as kf
 from ..core.config import INT64_MAX, QueryConfig
 from ..core.vid import VidMapper
@@ -339,12 +339,32 @@ render_block_vcf_pipelined.text_bytes = 0
 
 
 def _render_lines(store, qc, vid, interval, blk, meta, dev, live,
-                  med_rows_p, *, ploidy, mixed_ploidy, ref_genome,
-                  sequential_fn, filter_name_by_field_idx,
-                  coalesce) -> List[str]:
+                  med_rows_p, *, sequential_fn, **kw) -> List[str]:
     """The text lines of one combined block: the host render of the
     block's records from its host outputs `dev` (INFO reductions
-    restricted to the padded `med_rows_p` rows when given)."""
+    restricted to the padded `med_rows_p` rows when given).  Timed as
+    the span `render`, each run of records spliced from the sequential
+    engine as its child `render.splice`."""
+    with profile.span("render"):
+        return _render_block_lines(
+            store, qc, vid, interval, blk, meta, dev, live, med_rows_p,
+            sequential_fn=_spliced(sequential_fn), **kw)
+
+
+def _spliced(sequential_fn):
+    if sequential_fn is None:
+        return None
+
+    def splice(lo, hi):
+        with profile.span("render.splice"):
+            return sequential_fn(lo, hi)
+    return splice
+
+
+def _render_block_lines(store, qc, vid, interval, blk, meta, dev, live,
+                        med_rows_p, *, ploidy, mixed_ploidy, ref_genome,
+                        sequential_fn, filter_name_by_field_idx,
+                        coalesce) -> List[str]:
     plan = meta.plan
     B, S = live.shape
     if med_rows_p is not None:
@@ -391,11 +411,8 @@ def _render_lines(store, qc, vid, interval, blk, meta, dev, live,
             plan_items.append(("block", b))
             block_bs.append(b)
             e += 1
-    from ..core import profile
-    if profile.ENABLED:
-        profile.GLOBAL_STATS.bump("block_records", len(block_bs))
-        profile.GLOBAL_STATS.bump("spliced_records",
-                                  len(emitted_arr) - len(block_bs))
+    profile.count("block_records", len(block_bs))
+    profile.count("spliced_records", len(emitted_arr) - len(block_bs))
     # ---------------- coordinate/contig resolution ----------------
     starts_l = starts.tolist()
     ends_l = meta.ends.tolist()

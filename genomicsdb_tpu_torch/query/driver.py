@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+from ..core import profile
 from ..core.config import ImportParams, INT64_MAX, QueryConfig, QueryParams
 from ..core.vid import VidMapper
 from ..ops.store_block import record_starts
@@ -80,9 +81,8 @@ def run_vcf_query(store: ColumnarStore, qc: QueryConfig, qp: QueryParams,
         template = load_template(template_path)
         out_lines.extend(build_header_lines(template, vid, qc))
         out_lines.append(chrom_line(sample_names, qc.sites_only_query))
-    from ..core import profile
     intervals = qc.column_intervals if qc.column_intervals else [None]
-    with profile.GLOBAL_STATS.phase("Combined-gVCF-production"):
+    with profile.span("Combined-gVCF-production"):
         for iv in intervals:
             scan_and_operate(store, qc, op.operate, iv,
                              handle_spanning_deletions=True)
@@ -162,7 +162,8 @@ def run_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
         pack=pack, mesh=mesh))
     if not out_lines:
         return ""
-    return "\n".join(out_lines) + "\n"
+    with profile.span("query.join"):
+        return "\n".join(out_lines) + "\n"
 
 
 def iter_vcf_query_block(store, qc: QueryConfig, qp: QueryParams,
@@ -312,9 +313,20 @@ def _iter_interval_blocks(store, iv, qc, qp, vid, device, ref_genome,
         next(g)
         if pending is not None:
             yield from next(pending)
+            _release(pending)
         pending = g
     if pending is not None:
         yield from next(pending)
+        _release(pending)
+
+
+def _release(chunk) -> None:
+    """Close a rendered chunk's generator (timed as the span
+    `block.release`): what only its frame still holds, such as the
+    block and its host outputs, is freed here rather than wherever the
+    last reference happens to drop."""
+    with profile.span("block.release"):
+        chunk.close()
 
 
 def _mesh_span(mesh, starts, civ, i: int, j: int, pad_kw: dict):

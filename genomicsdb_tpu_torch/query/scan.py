@@ -123,7 +123,7 @@ def scan_variants(store: ColumnarStore, qc: QueryConfig,
             if num_calls_with_deletions:
                 min_end = current_start  # single-position stepping
             if profile.ENABLED:
-                profile.GLOBAL_STATS.bump("operator_invocations")
+                profile.count("operator_invocations")
             yield Variant(current_start, min_end, list(calls), list(valid))
             # pop all calls ending exactly at min_end
             while True:
@@ -174,7 +174,7 @@ def scan_variants(store: ColumnarStore, qc: QueryConfig,
         if r not in row_to_qidx:
             continue
         if profile.ENABLED:
-            profile.GLOBAL_STATS.bump("cells_traversed")
+            profile.count("cells_traversed")
         if current_start < 0:
             current_start = col
         if col != current_start:

@@ -3,7 +3,9 @@
 The library is built from `native/` at first use, into
 `build/genomicsdb_tpu_torch/native/` under the checkout, never into the
 package.  Falls back silently to None when no C++ toolchain is
-available; callers keep the pure-Python path.
+available; callers keep the pure-Python path.  The first call builds
+and loads under a lock: a thread that asks while another builds waits
+for the library.
 """
 
 from __future__ import annotations
@@ -11,9 +13,12 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
+
+from ..core import profile
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
 _BUILD_DIR = os.path.join(
@@ -24,6 +29,7 @@ _LIB_PATH = os.path.join(_BUILD_DIR, "libgdb_native.so")
 
 _lib = None
 _tried = False
+_LOCK = threading.Lock()
 
 
 def _text_buf(cap):
@@ -37,9 +43,19 @@ def _text_buf(cap):
 
 def get_lib() -> Optional[ctypes.CDLL]:
     global _lib, _tried
-    if _lib is not None or _tried:
+    if _tried:
         return _lib
-    _tried = True
+    with _LOCK:
+        if not _tried:
+            _lib = _load()
+            _tried = True
+    return _lib
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The library, built first where it is missing or older than a
+    source (timed as the span `build.native`, counted in
+    `COUNTS.native_builds`); None where it cannot be built or loaded."""
     srcs = [os.path.join(_NATIVE_DIR, f)
             for f in ("vcf_kernels.cpp", "seq_bench.cpp",
                       "bcf_encode.cpp", "bcf_decode.cpp")]
@@ -53,8 +69,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
             # build at once never load a half-written library
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-            subprocess.run(["make", "-B", "-C", _NATIVE_DIR, f"OUT={tmp}"],
-                           capture_output=True, check=True)
+            profile.count("native_builds")
+            with profile.span("build.native"):
+                subprocess.run(["make", "-B", "-C", _NATIVE_DIR,
+                                f"OUT={tmp}"], capture_output=True,
+                               check=True)
             os.replace(tmp, _LIB_PATH)
         except Exception:
             if not os.path.isfile(_LIB_PATH):
@@ -102,8 +121,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             np.ctypeslib.ndpointer(np.int32), ctypes.c_int32,
             np.ctypeslib.ndpointer(np.int64),
             np.ctypeslib.ndpointer(np.int64)]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def _bind_render(lib):

@@ -25,7 +25,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from ..core import formats
+from ..core import formats, profile
 
 
 @dataclass
@@ -116,11 +116,12 @@ class ColumnarStore:
         c = getattr(self, "_row_sort_cache", None)
         if c is None or len(c) != 4:
             n = self.num_cells
-            row_sorted = np.argsort(self.row, kind="stable") if n \
-                else np.zeros(0, dtype=np.int64)
-            sorted_rows = self.row[row_sorted] if n else row_sorted
-            col_by_row = self.col[row_sorted] if n else row_sorted
-            eff_by_row = self.eff_end[row_sorted] if n else row_sorted
+            with profile.rebuild("row_layout"):
+                row_sorted = np.argsort(self.row, kind="stable") if n \
+                    else np.zeros(0, dtype=np.int64)
+                sorted_rows = self.row[row_sorted] if n else row_sorted
+                col_by_row = self.col[row_sorted] if n else row_sorted
+                eff_by_row = self.eff_end[row_sorted] if n else row_sorted
             c = self._row_sort_cache = (row_sorted, sorted_rows,
                                         col_by_row, eff_by_row)
         return c

@@ -444,7 +444,7 @@ def import_callsets(vid: VidMapper, base_dir: str = "",
     from ..core import profile
     # native columnar-direct fast path (falls back per file)
     if os.environ.get("GENOMICSDB_TPU_NO_NATIVE", "") in ("", "0"):
-        with profile.GLOBAL_STATS.phase("Fetch-from-VCF"):
+        with profile.span("Fetch-from-VCF"):
             fast = _try_fast_import(files, vid, base_dir, column_partition,
                                     treat_deletions_as_intervals)
         if fast is not None:

@@ -55,6 +55,7 @@ import tempfile
 import threading
 import time
 
+from ..core import profile
 from ..core.config import INT64_MAX, ImportParams, QueryParams
 from ..device import resolve_device
 from ..query import driver as qdriver
@@ -64,6 +65,13 @@ from ..store import workspace as ws
 
 
 def load_context(args, rank: int):
+    """(import params, query params, vid, store) of rank `rank`: the
+    workspace opened anew (timed as the span `query.open`)."""
+    with profile.span("query.open"):
+        return _load_context(args, rank)
+
+
+def _load_context(args, rank: int):
     ip = ImportParams.from_file(args.loader) if args.loader else None
     if getattr(args, "query_pb", None):
         # binary ExportConfiguration (the reference's PB plane; wire-
@@ -546,6 +554,15 @@ def rank_output(argv) -> str:
 
 
 def main(argv=None, *, pack=None):
+    """The tool: one request (the root span `query`) per call; with
+    GENOMICSDB_TPU_PROFILE set, the tracer's report on stderr after
+    it."""
+    with profile.request("query"):
+        _main(argv, pack)
+    profile.maybe_report()
+
+
+def _main(argv, pack):
     p = _build_parser()
     args = p.parse_args(argv)
     if not args.query_json and not args.query_pb:
@@ -576,6 +593,13 @@ def main(argv=None, *, pack=None):
     except KeyError as e:
         raise SystemExit(f"gdb_query: unknown contig or field {e} "
                          "(check --chromosome / vid mapping)")
+    with profile.span("query.write"):
+        _write_output(args, pieces)
+
+
+def _write_output(args, pieces) -> None:
+    """The ranks' pieces joined, written to the query's output file or
+    to stdout."""
     text = "".join(pieces)
     # vcf_output_filename / vcf_output_format knobs (VCFAdapter "z" mode)
     if args.query_pb:
@@ -595,9 +619,6 @@ def main(argv=None, *, pack=None):
             f.write(text)
     else:
         sys.stdout.write(text)
-    # GENOMICSDB_TPU_PROFILE=1: scan counters + timers + memory to stderr
-    from ..core import profile
-    profile.maybe_report()
 
 
 if __name__ == "__main__":
