@@ -65,6 +65,8 @@ class _Counts:
         self.kernel_builds = 0       # nvcc builds of the kernel library
         self.native_builds = 0       # make of the native text library
         self.spans_dropped = 0       # spans past MAX_SPANS
+        self.store_cells = 0         # cells of the stores queries opened
+        self.window_cells = 0        # cells their tables were derived over
 
     def __getattr__(self, name):
         if name.startswith("__"):

@@ -28,7 +28,8 @@ the contiguous index range
 `OocArray.windows` yields materialized ColumnarStore windows sized to
 `segment_size`, each carrying the GLOBAL eff_end values, so the block
 and sequential engines run on them unchanged and chunk concatenation is
-byte-identical to a whole-array query.
+byte-identical to a whole-array query.  `column_window` cuts the same
+window out of an open store as views of its columns.
 """
 
 from __future__ import annotations
@@ -262,38 +263,59 @@ def open_fragment_v2(frag_dir: str, mmap: bool = True) -> ColumnarStore:
 
 
 def slice_store(store: ColumnarStore, i0: int, i1: int) -> ColumnarStore:
-    """Materialize the CONTIGUOUS cell range [i0, i1) as a standalone
-    in-RAM store.  Contiguity means every column is a pure byte-range
-    read (no gathers) and the stored GLOBAL eff_end values carry over
-    exactly — unlike store_take, which recomputes them from the subset.
-    """
+    """The CONTIGUOUS cell range [i0, i1) as a store of its own, whose
+    columns are views of the store's (memory-mapped) columns: no gathers,
+    and the stored GLOBAL eff_end values carry over exactly — unlike
+    store_take, which recomputes them from the subset.  Only the ragged
+    fields' offsets, rebased to their window's values, are new arrays."""
     out = ColumnarStore(num_rows=store.num_rows, lb_row=store.lb_row)
     out.attribute_order = list(store.attribute_order)
-    out.row = np.array(store.row[i0:i1])
-    out.col = np.array(store.col[i0:i1])
-    out.end = np.array(store.end[i0:i1])
-    out.eff_end = np.array(store.eff_end[i0:i1])
+    out.row = store.row[i0:i1]
+    out.col = store.col[i0:i1]
+    out.end = store.end[i0:i1]
+    out.eff_end = store.eff_end[i0:i1]
     for name, fd in store.fields.items():
-        valid = np.array(fd.valid[i0:i1])
+        valid = fd.valid[i0:i1]
         if fd.kind == "fixed":
             out.fields[name] = FieldData(name, fd.kind, fd.dtype, valid,
-                                         np.array(fd.values[i0:i1]))
+                                         fd.values[i0:i1])
             continue
         if fd.kind == "ragged2d":
             o0, o1 = int(fd.outer_offsets[i0]), int(fd.outer_offsets[i1])
             v0, v1 = int(fd.offsets[o0]), int(fd.offsets[o1])
             out.fields[name] = FieldData(
-                name, fd.kind, fd.dtype, valid,
-                np.array(fd.values[v0:v1]),
+                name, fd.kind, fd.dtype, valid, fd.values[v0:v1],
                 np.array(fd.offsets[o0:o1 + 1]) - v0,
                 np.array(fd.outer_offsets[i0:i1 + 1]) - o0)
             continue
         v0, v1 = int(fd.offsets[i0]), int(fd.offsets[i1])
         out.fields[name] = FieldData(
-            name, fd.kind, fd.dtype, valid,
-            np.array(fd.values[v0:v1]),
+            name, fd.kind, fd.dtype, valid, fd.values[v0:v1],
             np.array(fd.offsets[i0:i1 + 1]) - v0)
     return out
+
+
+def window_bounds(col: np.ndarray, max_span: int, lo: int, hi: int
+                  ) -> Tuple[int, int]:
+    """[i0, i1): the (col,row)-sorted cells that can intersect columns
+    [lo, hi] when no cell spans more than `max_span` positions."""
+    return (int(np.searchsorted(col, lo - max_span, side="left")),
+            int(np.searchsorted(col, hi, side="right")))
+
+
+def column_window(store: ColumnarStore, lo: int, hi: int) -> ColumnarStore:
+    """The cells of `store` that can intersect columns [lo, hi], as views
+    of its columns (`slice_store`) with their GLOBAL eff_end values;
+    `store` itself where that is every cell.  A query of intervals inside
+    [lo, hi] reads the same bytes from either.  The longest cell span is
+    a v2 fragment's manifest's, else one pass over the cells."""
+    man = getattr(store, "_v2_manifest", None)
+    span = int(man["max_span"]) if man is not None \
+        else int((store.end - store.col).max(initial=0))
+    i0, i1 = window_bounds(store.col, span, lo, hi)
+    if i0 == 0 and i1 == store.num_cells:
+        return store
+    return slice_store(store, i0, i1)
 
 
 class _PreadColumn:
@@ -413,10 +435,8 @@ class OocArray:
 
     def window(self, lo: int, hi: int) -> ColumnarStore:
         """Materialize all cells that can intersect [lo, hi]."""
-        col = self.store.col
-        i0 = int(np.searchsorted(col, lo - self.max_span, side="left"))
-        i1 = int(np.searchsorted(col, hi, side="right"))
-        return self.read_window(i0, i1)
+        return self.read_window(*window_bounds(self.store.col,
+                                               self.max_span, lo, hi))
 
     def windows(self, interval: Tuple[int, int]
                 ) -> Iterator[Tuple[int, int, ColumnarStore]]:
@@ -431,9 +451,7 @@ class OocArray:
         budget = max(int(self.segment_size / self.bytes_per_cell), 1024)
         cur = lo
         while cur <= hi:
-            i0 = int(np.searchsorted(col, cur - self.max_span,
-                                     side="left"))
-            j_end = int(np.searchsorted(col, hi, side="right"))
+            i0, j_end = window_bounds(col, self.max_span, cur, hi)
             if j_end - i0 > budget:
                 j = i0 + budget
                 split_col = int(col[j])

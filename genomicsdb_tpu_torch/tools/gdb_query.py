@@ -15,10 +15,12 @@ Takes the JAX tool's arguments plus `--device`, the counterpart of
 engine (the default) runs the port's device combine on that device, and
 so does the paged combined stream (`-p`); with `--ooc` (or past the
 automatic size threshold) the block engine streams the store's column
-windows.  Every other query mode, `--java-vcf` and `--engine
-sequential` run on the host.  The fetch pack is on by default on a CUDA
-device and off on the CPU; callers of `main` / `run_rank` (tests,
-chip_smoke.py) force it with the `pack` keyword.
+windows.  Without `-p` or `--ooc`, the block engine derives its tables
+from the cells of the opened store that can intersect the query's
+column ranges (`window_store`).  Every other query mode, `--java-vcf`
+and `--engine sequential` run on the host.  The fetch pack is on by
+default on a CUDA device and off on the CPU; callers of `main` /
+`run_rank` (tests, chip_smoke.py) force it with the `pack` keyword.
 
 Distribution, as in the JAX tool:
 
@@ -62,13 +64,50 @@ from ..query import driver as qdriver
 from ..query import operators as ops
 from ..query.scan import iterate_cells, scan_and_operate
 from ..store import workspace as ws
+from ..store.columnar import ColumnarStore
+from ..store.fragment_v2 import OocArray, column_window
 
 
 def load_context(args, rank: int):
     """(import params, query params, vid, store) of rank `rank`: the
-    workspace opened anew (timed as the span `query.open`)."""
+    workspace opened anew and, for the block combine, cut to the
+    query's column window (`window_store`); timed as the span
+    `query.open`."""
     with profile.span("query.open"):
         return _load_context(args, rank)
+
+
+def block_combine(args) -> bool:
+    """Whether the query is the block engine's combined gVCF
+    (`--produce-Broad-GVCF --engine block`, without `--java-vcf` or
+    `-p`): the mode that streams an OocArray's windows, that a mesh
+    shards, and whose store is cut to its column window."""
+    return bool(args.produce_Broad_GVCF and args.engine == "block"
+                and not args.java_vcf and args.page_size == 0)
+
+
+def window_store(args, qp, store):
+    """The store that the query's tables are derived over: for the block
+    combine on a store opened for this call (in RAM or memory-mapped),
+    its cells that can intersect the query's column ranges
+    (`fragment_v2.column_window`: views of its columns, global eff_end
+    values kept); the store itself for a whole-store query, an
+    out-of-core store (which streams windows of its own) and every
+    other query mode.  A store kept open across queries (the stream
+    server, the serving engine) never comes through here, so it keeps
+    its store-wide tables, and the serving index, which builds on a
+    store's second query of one signature, never meets a window.
+    Counts `store_cells` (the opened store's) and `window_cells`."""
+    n = (store.store if isinstance(store, OocArray) else store).num_cells
+    ranges = [] if qp.scan_full or not qp.column_ranges \
+        else qp.column_ranges[0]
+    if ranges and block_combine(args) and isinstance(store, ColumnarStore):
+        store = column_window(store, min(int(a) for a, _ in ranges),
+                              max(int(b) for _, b in ranges))
+    profile.count("store_cells", n)
+    profile.count("window_cells", n if isinstance(store, OocArray)
+                  else store.num_cells)
+    return store
 
 
 def _load_context(args, rank: int):
@@ -130,7 +169,7 @@ def _load_context(args, rank: int):
         subset = [(max(a, lo), min(b, hi))
                   for a, b in qp.column_ranges[0] if a <= hi and b >= lo]
         qp.column_ranges = [subset]
-    return ip, qp, vid, store
+    return ip, qp, vid, window_store(args, qp, store)
 
 
 def _open_store(args, qp, workspace):
@@ -159,10 +198,7 @@ def run_rank(args, rank: int, device, pack=None, mesh=None) -> str:
     `device` (`pack` and `mesh` as in driver.run_vcf_query_block), every
     other query mode on the host."""
     ip, qp, vid, store = load_context(args, rank)
-    from ..store.fragment_v2 import OocArray
-    if isinstance(store, OocArray) and not (
-            args.produce_Broad_GVCF and args.engine == "block"
-            and not args.java_vcf and args.page_size == 0):
+    if isinstance(store, OocArray) and not block_combine(args):
         # only the block combine engine streams OocArray windows; the
         # other query types run on the memory-mapped store view (the OS
         # pages in what the query touches)
@@ -311,8 +347,7 @@ def _refuse(args) -> None:
     if args.platform:
         raise SystemExit("gdb_query: --platform selects a jax platform; "
                          "the port takes --device")
-    if args.mesh and not (args.produce_Broad_GVCF and args.engine == "block"
-                          and not args.java_vcf and args.page_size == 0):
+    if args.mesh and not block_combine(args):
         raise SystemExit("gdb_query: --mesh shards the block engine's "
                          "combine: it takes --produce-Broad-GVCF with the "
                          "block engine, without -p or --java-vcf")
