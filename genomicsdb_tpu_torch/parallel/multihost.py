@@ -19,6 +19,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..core import profile
 from .comm import PG_TIMEOUT_S
 
 
@@ -69,7 +70,10 @@ def gather_blobs_to_root(blob: bytes, group=None,
     safe, the reference's BigMPI case).  Returns the blobs in process
     order on process 0, None elsewhere.  With `group` the processes are
     the group's and process 0 is its first; the bytes move through
-    tensors on `device` (a card for an NCCL group)."""
+    tensors on `device` (a card for an NCCL group).  Counts the bytes
+    this process received in the lengths' all-gather and sent or
+    received as payload in `gather_blobs_to_root.bytes` and in
+    `profile.COUNTS.collective_bytes`."""
     pid, n = _world(group)
     if n == 1:
         return [blob]
@@ -81,6 +85,7 @@ def gather_blobs_to_root(blob: bytes, group=None,
     lengths = [torch.zeros(1, dtype=torch.int64, device=device)
                for _ in range(n)]
     dist.all_gather(lengths, length, group=group)
+    moved = 8 * n
     src = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device) \
         if blob else torch.empty(0, dtype=torch.uint8)
     pieces: List[bytes] = []
@@ -95,15 +100,22 @@ def gather_blobs_to_root(blob: bytes, group=None,
             elif pid == i:
                 dist.send(src[off:off + m].contiguous(), dst=member(0),
                           group=group)
+                moved += m
             elif pid == 0:
                 got = torch.empty(m, dtype=torch.uint8, device=device)
                 dist.recv(got, src=member(i), group=group)
                 parts.append(got.cpu().numpy().tobytes())
+                moved += m
         if pid == 0:
             pieces.append(b"".join(parts))
+    gather_blobs_to_root.bytes += moved
+    profile.count("collective_bytes", moved)
     if pid != 0:
         return None
     return pieces
+
+
+gather_blobs_to_root.bytes = 0
 
 
 def run_partitioned_query(run_rank: Callable[[int], bytes],

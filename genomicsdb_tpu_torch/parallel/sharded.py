@@ -34,7 +34,8 @@ by the sharded demo, the graft entry and the parity tests.
 
   make_mesh              the process group (backend by `choose_backend`),
                          this rank's device and a DeviceMesh with
-                         mesh_dim_names ("pos", "row")
+                         mesh_dim_names ("pos", "row"), built once per
+                         world and shape (`drop_meshes` forgets them)
   local_slabs            this rank's sample rows of the store-wide slabs
   scatter_rows           the row group's block rows, each rank its samples
   combine_shard          the kernel step (or the general one past its
@@ -51,6 +52,7 @@ by the sharded demo, the graft entry and the parity tests.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import datetime
@@ -67,7 +69,7 @@ from ..core import formats, profile
 from ..ops import fused_combine as FC
 from ..ops.combine_step import block_to_tensors, combine_step, to_tensor
 from ..ops.store_block import dense_layout
-from .comm import PG_TIMEOUT_S, gather_to_root
+from .comm import PG_TIMEOUT_S, collective, gather_to_root
 
 INT_MISSING = formats.INT_MISSING
 
@@ -156,6 +158,11 @@ class Mesh:
             else torch.device("cpu")
 
 
+#: the meshes this process laid out in a world it did not start:
+#: (n_pos, n_row, backend, device) -> (the world's default group, Mesh)
+_MESHES: Dict[tuple, tuple] = {}
+
+
 def make_mesh(n_pos: int, n_row: int, device) -> Mesh:
     """Join (or start) the world of n_pos * n_row rank processes and lay
     it out as a ("pos", "row") DeviceMesh.  Without an initialized
@@ -164,9 +171,49 @@ def make_mesh(n_pos: int, n_row: int, device) -> Mesh:
     backend `choose_backend` picks, and says which on stderr.  Rank r
     runs on `rank_device(device, LOCAL_RANK or r)`.  The DeviceMesh is
     a "cuda" mesh on NCCL and a "cpu" one on gloo, where the collectives
-    run on the host."""
-    from torch.distributed.device_mesh import init_device_mesh
+    run on the host.
+
+    A world started before the call (a launcher's or the caller's) that
+    serves many queries lays its mesh out once: its Mesh of one (shape,
+    backend, device) is kept, and later calls return it with its groups
+    (each build makes new row and pos groups, and on NCCL their
+    communicators); `drop_meshes` forgets the kept ones (the
+    interpreter's exit calls it, and a new world's first build drops an
+    ended world's).  A mesh whose world this call starts is not kept:
+    its caller ends both.  Each build is timed as the span `mesh.join` and counted
+    in `profile.COUNTS.mesh_joins`."""
     device = torch.device(device)
+    key = None
+    if dist.is_initialized():
+        dev = rank_device(device, int(os.environ.get("LOCAL_RANK",
+                                                     dist.get_rank())))
+        key = (n_pos, n_row, dist.get_backend(), str(dev))
+        hit = _MESHES.get(key)
+        if hit is not None and hit[0] is dist.group.WORLD:
+            return hit[1]
+    with profile.span("mesh.join"):
+        mesh = _join_mesh(n_pos, n_row, device)
+    profile.count("mesh_joins")
+    if key is not None:
+        for k in [k for k, (w, _) in _MESHES.items()
+                  if w is not dist.group.WORLD]:
+            del _MESHES[k]          # of a world that has ended
+        _MESHES[key] = (dist.group.WORLD, mesh)
+    return mesh
+
+
+@atexit.register
+def drop_meshes() -> None:
+    """Forget the meshes `make_mesh` kept: their groups go with the last
+    reference.  A world's owner may call it before destroy_process_group
+    (a group that outlives it can abort the interpreter's exit on
+    gloo); the interpreter's exit calls it too, so a caller that ends
+    its world without it exits cleanly."""
+    _MESHES.clear()
+
+
+def _join_mesh(n_pos: int, n_row: int, device: torch.device) -> Mesh:
+    from torch.distributed.device_mesh import init_device_mesh
     world = n_pos * n_row
     if dist.is_initialized():
         rank, size = dist.get_rank(), dist.get_world_size()
@@ -444,8 +491,10 @@ def scatter_rows(mesh: Mesh, header: Optional[RowsHeader], rows,
     S samples); the others pass None for both.  That rank broadcasts the
     header over the row group, then scatters each rank its sample rows
     (padded with `_LAYOUT`'s fills) as one int32 word vector: two
-    collectives, none in a row group of one.  Counts the bytes this rank
-    sent or received in `scatter_rows.bytes`."""
+    collectives, none in a row group of one, each timed as the span
+    `mesh.scatter_rows` (`comm.collective`; the pack and its upload are
+    outside).  Counts the bytes this rank sent or received in
+    `scatter_rows.bytes` and in `profile.COUNTS.collective_bytes`."""
     group = mesh.row_group
     if group is None:
         return header, tuple(to_tensor(np.asarray(a), mesh.device)
@@ -454,7 +503,8 @@ def scatter_rows(mesh: Mesh, header: Optional[RowsHeader], rows,
     head = torch.tensor([int(v) for v in dataclasses.astuple(header)]
                         if header is not None else [0] * 6,
                         dtype=torch.int64, device=mesh.wire)
-    dist.broadcast(head, src=root, group=group)
+    with collective("mesh.scatter_rows", mesh.wire):
+        dist.broadcast(head, src=root, group=group)
     vals = head.tolist()
     header = RowsHeader(*vals[:3], *map(bool, vals[3:]))
     s_loc = -(-S // mesh.n_row)
@@ -463,11 +513,15 @@ def scatter_rows(mesh: Mesh, header: Optional[RowsHeader], rows,
     local = torch.empty(n_words, dtype=torch.int32, device=mesh.wire)
     parts = None
     if mesh.row == 0:
-        parts = [torch.from_numpy(_pack_rows(rows, _span(S, mesh.n_row, r)))
-                 .to(mesh.wire) for r in range(mesh.n_row)]
-    dist.scatter(local, parts, src=root, group=group)
-    scatter_rows.bytes += (local.numel() * 4 + head.numel() * 8) \
+        parts = [_upload(torch.from_numpy(
+                     _pack_rows(rows, _span(S, mesh.n_row, r))), mesh.wire)
+                 for r in range(mesh.n_row)]
+    with collective("mesh.scatter_rows", mesh.wire):
+        dist.scatter(local, parts, src=root, group=group)
+    moved = (local.numel() * 4 + head.numel() * 8) \
         * (mesh.n_row - 1 if mesh.row == 0 else 1)
+    scatter_rows.bytes += moved
+    profile.count("collective_bytes", moved)
     if mesh.wire != mesh.device:
         local = _upload(local, mesh.device)
     return header, _unpack_rows(local, B, s_loc, M)
@@ -481,52 +535,57 @@ def _np_dtype(dt: torch.dtype) -> np.dtype:
 
 
 def _assemble(out: Dict[str, torch.Tensor], group, size: int, n_pos: int,
-              n_row: int, B: int, S: int) -> Optional[Dict[str, np.ndarray]]:
+              n_row: int, B: int, S: int, span: str = "mesh.all_gather"
+              ) -> Optional[Dict[str, np.ndarray]]:
     """The outputs of `size` shards (n_pos x n_row, in group rank order)
     on the group's first rank, trimmed to B records x S samples; None on
-    the others.  One collective, none for a group of one: each rank's
-    outputs move as one byte blob, the same size on every rank."""
+    the others.  One collective (timed as the span `span`), none for a
+    group of one: each rank's outputs move as one byte blob, the same
+    size on every rank.  The copy to the host and the assembly there are
+    the span `device.fetch`."""
     keys = sorted(out)
     parts = [out[k].contiguous().reshape(-1).view(torch.uint8)
              for k in keys]
     blob = torch.cat(parts)
-    got = gather_to_root(blob, group) if size > 1 else blob[None]
+    got = gather_to_root(blob, group, span) if size > 1 else blob[None]
     if got is None:
         return None
-    blobs = got.cpu().numpy()
-    b_loc, s_loc = -(-B // n_pos), -(-S // n_row)
-    res = {}
-    for k in keys:
-        v = out[k]
-        shape = tuple(v.shape)
-        if k in _PER_SAMPLE:
-            shape = (b_loc * n_pos, s_loc * n_row) + shape[2:]
-        elif k.startswith("info_"):
-            shape = (shape[0], b_loc * n_pos)
-        else:
-            shape = (b_loc * n_pos,)
-        res[k] = np.empty(shape, _np_dtype(v.dtype))
-    for r in range(size):
-        pos, row = divmod(r, n_row)
-        bs = slice(pos * b_loc, (pos + 1) * b_loc)
-        off = 0
-        for k, p in zip(keys, parts):
+    with profile.span("device.fetch"):
+        with profile.span("device.fetch.wait"):
+            blobs = got.cpu().numpy()
+        b_loc, s_loc = -(-B // n_pos), -(-S // n_row)
+        res = {}
+        for k in keys:
             v = out[k]
-            a = blobs[r, off:off + p.numel()].view(
-                _np_dtype(v.dtype)).reshape(tuple(v.shape))
-            off += p.numel()
+            shape = tuple(v.shape)
             if k in _PER_SAMPLE:
-                res[k][bs, row * s_loc:(row + 1) * s_loc] = a
-            elif row == 0:
-                if k.startswith("info_"):
-                    res[k][:, bs] = a
-                else:
-                    res[k][bs] = a
-    for k in keys:
-        a = res[k]
-        res[k] = a[:B, :S] if k in _PER_SAMPLE else \
-            a[:, :B] if k.startswith("info_") else a[:B]
-    return res
+                shape = (b_loc * n_pos, s_loc * n_row) + shape[2:]
+            elif k.startswith("info_"):
+                shape = (shape[0], b_loc * n_pos)
+            else:
+                shape = (b_loc * n_pos,)
+            res[k] = np.empty(shape, _np_dtype(v.dtype))
+        for r in range(size):
+            pos, row = divmod(r, n_row)
+            bs = slice(pos * b_loc, (pos + 1) * b_loc)
+            off = 0
+            for k, p in zip(keys, parts):
+                v = out[k]
+                a = blobs[r, off:off + p.numel()].view(
+                    _np_dtype(v.dtype)).reshape(tuple(v.shape))
+                off += p.numel()
+                if k in _PER_SAMPLE:
+                    res[k][bs, row * s_loc:(row + 1) * s_loc] = a
+                elif row == 0:
+                    if k.startswith("info_"):
+                        res[k][:, bs] = a
+                    else:
+                        res[k][bs] = a
+        for k in keys:
+            a = res[k]
+            res[k] = a[:B, :S] if k in _PER_SAMPLE else \
+                a[:, :B] if k.startswith("info_") else a[:B]
+        return res
 
 
 def gather_rows(mesh: Mesh, out: Dict[str, torch.Tensor], B: int,
@@ -534,8 +593,10 @@ def gather_rows(mesh: Mesh, out: Dict[str, torch.Tensor], B: int,
     """The row group's shards of one block's outputs, assembled on its
     row-0 rank and trimmed to B records x S samples (the unsharded
     combine's layout); None on the other ranks.  A row group of one
-    fetches its outputs and moves nothing."""
-    return _assemble(out, mesh.row_group, mesh.n_row, 1, mesh.n_row, B, S)
+    fetches its outputs and moves nothing.  The group's gather is timed
+    as the span `mesh.gather_rows`."""
+    return _assemble(out, mesh.row_group, mesh.n_row, 1, mesh.n_row, B, S,
+                     "mesh.gather_rows")
 
 
 def gather_outputs(mesh: Mesh, out: Dict[str, torch.Tensor], B: int,

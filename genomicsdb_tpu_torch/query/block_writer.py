@@ -149,7 +149,8 @@ def _render_mesh_span(mesh, store, qc, vid, interval, *, max_merged,
         yield lines
         return
     from ..parallel.multihost import gather_blobs_to_root
-    pieces = gather_blobs_to_root(text, mesh.pos_group, mesh.wire)
+    with profile.span("mesh.gather_text"):
+        pieces = gather_blobs_to_root(text, mesh.pos_group, mesh.wire)
     if pieces is None:      # the mesh's first rank writes the chunk
         yield []
         return

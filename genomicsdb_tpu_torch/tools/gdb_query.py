@@ -42,6 +42,11 @@ Distribution, as in the JAX tool:
                     The backend follows the layout (NCCL with a card per
                     rank, gloo when ranks share a card or run on the
                     CPU).  The text equals the unsharded query's.
+                    Where the process group was started before the call
+                    (a launcher's or the caller's), every call of `main`
+                    is one query of that world: the world stays up and
+                    the mesh is laid out once (`sharded.make_mesh`); its
+                    owner ends it with destroy_process_group as usual.
 
 A rank that fails fails the whole query, with its stderr.
 """
@@ -527,7 +532,10 @@ def _mesh_pieces(args, device, n_pos: int, n_row: int):
     """This process as one rank of the mesh: its pieces of the output
     (the header alone off the first rank), whether it is the first rank,
     and a report line on stderr: its counts, the seconds it took to join
-    the mesh (`mesh_s`) and to run its query (`query_s`).  The counts:
+    the mesh (`mesh_s`; about 0 where a world kept up across queries
+    already laid it out, `sharded.make_mesh`) and to run its query
+    (`query_s`).  It ends the world only where it started it (a spawned
+    rank, `spawn_mesh`).  The counts:
     blocks combined (`blocks`, `general_path_blocks`), kernel launches,
     row-group all-gathers and their bytes, the blocks and records this
     rank built (`blocks_built`, `records_built`, padding excluded; the
@@ -563,7 +571,8 @@ def _mesh_pieces(args, device, n_pos: int, n_row: int):
     finally:
         # the DeviceMesh's groups go before the process group: a group
         # that outlives destroy_process_group aborts the interpreter's
-        # exit (gloo)
+        # exit (gloo).  A world this call did not start stays up, and
+        # its mesh with it, for the world's next query.
         del mesh
         if owned:
             dist.destroy_process_group()
