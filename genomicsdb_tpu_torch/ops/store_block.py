@@ -382,8 +382,11 @@ def store_to_block(store: ColumnarStore, qc: QueryConfig,
     field is gathered into `meta.extras` for the generalized writer.
 
     The dense [S, C] field slabs are STORE-WIDE and cached
-    (dense_layout): per-chunk work is the live-index sweep, the allele
-    LUT merge, and the extras gather.  Timed as the span `block.build`.
+    (dense_layout): per-chunk work is the records x samples grid (one
+    native pass, `native_loader.block_grid`; numpy without the library),
+    the allele LUT merge, the LUTs' fill, and the extras gather.  Timed
+    as the span `block.build`, with `block.grid` (the grid pass and the
+    LUT fill) and `block.merge` (the variant merges) inside.
     """
     with profile.span("block.build"):
         return _store_to_block(store, qc, interval, max_merged, ploidy,
@@ -470,52 +473,81 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
         store._del_state_cache = _del_cache
     cell_hasdel, del_state = _del_cache[1]
 
-    # --- record starts: events, expanded to SINGLE POSITIONS while any
-    # live call contains a deletion (the scan's single-position stepping,
-    # query_variants.cc:310 / scan.py min_end = current_start) ---
-    def _live_at(sts: np.ndarray) -> np.ndarray:
-        lv = np.full((len(sts), S), -1, dtype=np.int64)
-        for s in range(S):
-            idx = np.searchsorted(col[s], sts, side="right") - 1
-            ok = idx >= 0
-            idxc = np.clip(idx, 0, C - 1)
-            ok &= end[s, idxc] >= sts
-            lv[:, s] = np.where(ok, idxc, -1)
-        return lv
-
+    # per-cell tables the grid reads, every store-wide rebuild before the
+    # pass: GT's effective validity, the unrealizable queried fields and
+    # the over-cap ploidies (splice), the core fields' validity (meta)
+    gt_valid = _eff_valid_store(store, "GT", N) \
+        if N and gt_fd is not None else None
+    handled = plan.handled
+    other = []
+    for name, fd in store.fields.items():
+        if name in handled or fd.valid is None or not fd.valid.any():
+            continue
+        if qc.is_queried(name):
+            # stored but unqueried fields never render (the sequential
+            # writer only consumes qc.attributes) -> no splice needed
+            other.append(fd.valid)
+    # ploidy beyond the batched enumeration cap: splice (the genotype
+    # count explodes combinatorially; the reference's general-ploidy
+    # iterative enumeration territory, variant_field_handler.cc:199-296)
+    if N and gt_fd is not None and qc.is_queried("GT"):
+        other.append(_gt_bad(store, gt_fd, gt_info))
+    CORE_FMT = {"GT", "GQ", "AD", "PL", "MIN_DP", "DP_FORMAT", "DP"}
+    core_names = [name for name in CORE_FMT if name in store.fields] \
+        if return_meta else []
+    core = [_eff_valid_store(store, name, N) for name in core_names] \
+        if N else []
+    # rows carrying ANY valid INFO median/sum input (exact superset of
+    # device-side validity): the combine restricts its cross-sample
+    # sorts to these rows — on wide cohorts the [F, B, S] median sorts
+    # are most of the device time, and gVCF ref bands carry none
+    med_any = _med_any(lay, info_f, info_i, info_fs, S, C) \
+        if return_meta else None
+    tables = dict(refblock=cell_refblock, hasdel=cell_hasdel,
+                  ref_ok=ref_ok, gt_valid=gt_valid, other=other,
+                  core=core, gt_len_sc=gt_len_sc, med_any_sc=med_any)
     from ..runtime import native_loader as _NL
-    starts = events
-    if N and cell_hasdel.any() and len(events) and S:
-        _sw0 = _NL.live_sweep(col, end, cell_of, events)
-        if _sw0 is not None:
-            live0, cells0, _, end0min = _sw0
-            ok0 = live0 >= 0
-        else:
-            live0 = _live_at(events)
-            ok0 = live0 >= 0
-            k0 = np.clip(live0, 0, C - 1)
-            sg0 = np.arange(S)[None, :]
-            cells0 = np.where(ok0, cell_of[sg0, k0], -1)
-            end0min = np.where(ok0, end[sg0, k0],
-                               INT64_MAX).min(axis=1)
-        rec_del0 = (ok0 & cell_hasdel[np.clip(cells0, 0, N - 1)]
-                    ).any(axis=1)
-        if rec_del0.any():
-            nxt0 = np.empty(len(events), dtype=np.int64)
-            nxt0[:-1] = events[1:] - 1
-            nxt0[-1] = INT64_MAX - 2
-            hi_b = interval[1] if interval is not None else INT64_MAX - 2
-            end0 = np.minimum(np.minimum(nxt0, end0min), hi_b)
-            seg = np.where(rec_del0, np.maximum(end0 - events + 1, 1),
-                           1).astype(np.int64)
-            from ..store.columnar import _ragged_arange
-            starts = _ragged_arange(events, seg)
-    if pad_records is not None and len(starts) < pad_records:
-        # sentinel starts beyond any cell: no live cells -> the writer
-        # emits nothing for them (uniform B across chunks)
-        starts = np.concatenate([
-            starts, np.full(pad_records - len(starts), INT64_MAX - 1,
-                            dtype=np.int64)])
+
+    def grid(sts, slots=True):
+        """(grid, whether the native pass made it): the numpy fallback
+        where the native library is missing."""
+        got = _NL.block_grid(col, end, cell_of, sts, N, slots=slots,
+                             **tables)
+        if got is not None:
+            return got, True
+        return _grid_numpy(col, end, cell_of, sts, N, **tables), False
+
+    with profile.span("block.grid"):
+        # --- record starts: events, expanded to SINGLE POSITIONS while
+        # any live call contains a deletion (the scan's single-position
+        # stepping, query_variants.cc:310 / scan.py min_end =
+        # current_start) ---
+        starts = events
+        if N and cell_hasdel.any() and len(events) and S:
+            g0, _ = grid(events, slots=False)
+            rec_del0 = g0["hasdel"]
+            if rec_del0.any():
+                nxt0 = np.empty(len(events), dtype=np.int64)
+                nxt0[:-1] = events[1:] - 1
+                nxt0[-1] = INT64_MAX - 2
+                hi_b = interval[1] if interval is not None \
+                    else INT64_MAX - 2
+                end0 = np.minimum(np.minimum(nxt0, g0["endmin"]), hi_b)
+                seg = np.where(rec_del0, np.maximum(end0 - events + 1, 1),
+                               1).astype(np.int64)
+                from ..store.columnar import _ragged_arange
+                starts = _ragged_arange(events, seg)
+        if pad_records is not None and len(starts) < pad_records:
+            # sentinel starts beyond any cell: no live cells -> the
+            # writer emits nothing for them (uniform B across chunks)
+            starts = np.concatenate([
+                starts, np.full(pad_records - len(starts), INT64_MAX - 1,
+                                dtype=np.int64)])
+        # --- the [B, S] grid: live cells, their store cells, starts-here
+        # and variant flags, GT lengths and core validity, and the
+        # per-record reductions, in one pass ---
+        g, native = grid(starts)
+    profile.count("block_grid_native" if native else "block_grid_numpy")
     B = len(starts)
     # effective merged-allele cap for this block: the reference's 50-alt
     # genotyping cap, tightened by (a) the block's ploidy × the
@@ -527,61 +559,20 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
     cap = min(merged_cap(ploidy, block_elems=max(B * S, S * C)),
               qc.params.max_diploid_alt_alleles_that_can_be_genotyped
               + 1)
-    # --- [B, S] live-cell views: one threaded native sweep emits the
-    # live indices, store cell indices, starts-here flags, and the
-    # per-record end minimum in a single O(C+B)-per-sample walk ---
-    _sw = _NL.live_sweep(col, end, cell_of, starts) if S else None
-    if _sw is not None:
-        live, cells_mat, _start_eq, end_min = _sw
-        live = live.astype(np.int64)
-        live_ok = live >= 0
-        live_k = np.clip(live, 0, C - 1)
-        s_grid = np.arange(S)[None, :]
-        safe_cm = np.clip(cells_mat, 0, max(N - 1, 0))
-        col_mat = None
-    else:
-        live = _live_at(starts)
-        live_ok = live >= 0
-        live_k = np.clip(live, 0, C - 1)
-        s_grid = np.arange(S)[None, :]
-        cells_mat = np.where(live_ok, cell_of[s_grid, live_k], -1)
-        safe_cm = np.clip(cells_mat, 0, max(N - 1, 0))
-        col_mat = np.where(live_ok, col[s_grid, live_k], INT64_MAX)
-        _start_eq = None
-        end_min = np.where(live_ok, end[s_grid, live_k],
-                           INT64_MAX).min(axis=1) if S else None
+    live, cells_mat = g["live"], g["cells"]
+    var_mat, start_eq = g["var"], g["starteq"]
+    first_start = g["first_start"]
     hi_bound = interval[1] if interval is not None else INT64_MAX - 1
     nxt = np.empty(B, dtype=np.int64)
     nxt[:-1] = starts[1:] - 1
     if B:
         nxt[-1] = INT64_MAX - 1
-    rec_ends = np.minimum(np.minimum(nxt, end_min)
-                          if S else nxt, hi_bound)
-    rec_hasdel = (live_ok & cell_hasdel[safe_cm]).any(axis=1) \
-        if N else np.zeros(B, dtype=bool)
-    var_mat = live_ok & ~cell_refblock[safe_cm] if N \
-        else np.zeros((B, S), dtype=bool)
-    rec_is_var = var_mat.any(axis=1)
+    rec_ends = np.minimum(np.minimum(nxt, g["endmin"]), hi_bound)
+    rec_hasdel = g["hasdel"]
+    rec_is_var = g["is_var"]
     rec_refonly = ~rec_is_var
     rec_num_merged = np.where(rec_refonly, 2, 1).astype(np.int32)
     rec_has_nr = np.ones(B, dtype=bool)   # ref blocks always carry &
-    # Allele LUTs per (record, sample) — the gathered form the remap
-    # kernels consume.  A per-record LUT (not per-cell) is required for
-    # multi-position variant cells (e.g. MNPs): the same cell can merge
-    # against a different variant set in each record it spans.
-    # inv_bs starts at the requested max_merged and GROWS (bucketed to
-    # powers of two, capped at MAX_MERGED_CAP) when a record merges more
-    # alleles — replacing the old splice-at->max_merged behaviour.
-    # Only records beyond the cap still splice (the reference's own
-    # too-many-alleles territory, broad_combined_gvcf.cc 50-alt cutoff).
-    inv_bs = np.full((B, S, max_merged), -1, dtype=np.int32)
-    nr_bs = np.full((B, S), -1, dtype=np.int32)
-    # identity LUT for every live slot of a ref-only record (all such
-    # cells are pure ref blocks, so [0, NON_REF] is exact)
-    touch_b, touch_s = np.nonzero(live_ok & rec_refonly[:, None])
-    inv_bs[touch_b, touch_s, 0] = 0
-    inv_bs[touch_b, touch_s, 1] = 1
-    nr_bs[touch_b, touch_s] = 1
     # merged REF of ref-only records: first row whose live cell STARTS
     # here.  rec_refs/rec_alts are object arrays so group-level results
     # scatter with one fancy-index store per signature group; records of
@@ -590,16 +581,14 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
     rec_refs = np.full(B, None, dtype=object)
     rec_alts = np.empty(B, dtype=object)
     rec_alts.fill(["&"])
-    if col_mat is None:
-        start_eq_bs = _start_eq
-    else:
-        start_eq_bs = live_ok & (col_mat == starts[:, None])
-    start_here = (start_eq_bs & ref_ok[safe_cm]) if N \
-        else np.zeros((B, S), dtype=bool)
-    ref_rows = np.nonzero(rec_refonly & start_here.any(axis=1))[0]
+
+    def first_ref(b: int) -> str:
+        c0 = int(cells_mat[b, first_start[b]])
+        return chr(ref_first[c0]) if ref_len[c0] == 1 else get_ref(c0)
+
+    ref_rows = np.nonzero(rec_refonly & (first_start >= 0))[0]
     if len(ref_rows):
-        s0 = np.argmax(start_here[ref_rows], axis=1)
-        c0s = cells_mat[ref_rows, s0]
+        c0s = cells_mat[ref_rows, first_start[ref_rows]]
         chars = ref_first[c0s]
         single = ref_len[c0s] == 1
         if single.any():
@@ -610,6 +599,27 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
         for b, c0 in zip(ref_rows[~single].tolist(),
                          c0s[~single].tolist()):
             rec_refs[b] = get_ref(int(c0))
+    # Allele LUTs per (record, sample) — the gathered form the remap
+    # kernels consume.  A per-record LUT (not per-cell) is required for
+    # multi-position variant cells (e.g. MNPs): the same cell can merge
+    # against a different variant set in each record it spans.
+    # The LUT width starts at the requested max_merged and GROWS
+    # (bucketed to powers of two, capped at MAX_MERGED_CAP) when a
+    # record merges more alleles; only records beyond the cap still
+    # splice (the reference's own too-many-alleles territory,
+    # broad_combined_gvcf.cc 50-alt cutoff).  The merges run first and
+    # record their rows; the LUTs are allocated once, at the final
+    # width.  A record past the cap keeps the width of its turn
+    # (`width` then), as a later group may still widen the block.
+    width = max_merged
+    scatters: List[Tuple] = []   # (records, samples, inv rows, nr col)
+
+    def merged_width(nm: int) -> int:
+        nonlocal width
+        if width < nm <= cap:
+            width = min(cap, max(max_merged, 1 << (nm - 1).bit_length()))
+        return min(nm, width)
+
     # --- variant records: per-record allele merge (host strings) ---
     # The merged REF only includes calls STARTING at the record
     # (GA4GHOperator skips col < variant.start, variant_operations.cc
@@ -627,304 +637,188 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
     del_rw = np.zeros((B, S), dtype=bool)
     gt_override: Dict[Tuple[int, int], np.ndarray] = {}
     var_bs = np.nonzero(rec_is_var)[0]
-    fast_done = np.zeros(B, dtype=bool)
-    if len(var_bs) and N:
-        # --- vectorized fast path: group variant records by their full
-        # per-slot (ref_code, alt_code, starting) signature; the merge
-        # runs once per group and the LUT scatter is one fancy-index op
-        # per group instead of per record.  Records with any
-        # deletion-rewritten call keep the per-record path below.
-        start_eq = start_eq_bs
-        cell_in_del = np.zeros(N, dtype=bool)
-        if del_state:
-            cell_in_del[np.fromiter(del_state.keys(),
-                                    dtype=np.int64)] = True
-        rw_any = (var_mat & cell_in_del[safe_cm] & ~start_eq
-                  ).any(axis=1)
-        fast_bs = var_bs[~rw_any[var_bs]]
-        var_bs = var_bs[rw_any[var_bs]]
-        if len(fast_bs):
-            vm = var_mat[fast_bs]
-            scm = safe_cm[fast_bs]
-            sig = np.full((len(fast_bs), S, 3), -1, dtype=np.int32)
-            sig[..., 0] = np.where(vm, ref_codes[scm], -1)
-            sig[..., 1] = np.where(vm, alt_codes[scm], -1)
-            sig[..., 2] = np.where(vm, start_eq[fast_bs], -1)
-            # bytes-key groupby: np.unique(axis=0) lexsorts the 3*S-wide
-            # rows (milliseconds per interval at 1000-sample width);
-            # hashing each row's bytes is linear
-            sig2 = np.ascontiguousarray(sig.reshape(len(fast_bs),
-                                                    3 * S))
-            row_bytes = sig2.view(np.uint8).reshape(len(fast_bs), -1)
-            grp: Dict[bytes, List[int]] = {}
-            for i in range(len(fast_bs)):
-                grp.setdefault(row_bytes[i].tobytes(), []).append(i)
-            groups_fast = list(grp.values())
-            start_any = start_here.any(axis=1)
-            for g in range(len(groups_fast)):
-                idxs_g = np.asarray(groups_fast[g], dtype=np.int64)
-                members = fast_bs[idxs_g]
-                b0 = int(members[0])
-                s_var = np.nonzero(var_mat[b0])[0]
-                var_cells = [int(c) for c in cells_mat[b0, s_var]]
-                starting = tuple(bool(x)
-                                 for x in start_eq[b0, s_var])
-                sig_key = (tuple(ref_codes[var_cells].tolist()),
-                           tuple(alt_codes[var_cells].tolist()),
-                           starting)
-                got = sig_cache.get(sig_key)
-                if got is None:
-                    # dedup identical (REF, ALT, starting) calls to
-                    # CLASSES before the Python-string merge: the merge
-                    # is idempotent over duplicate calls (seen-dict /
-                    # longest-REF updates are no-ops), so running it
-                    # over class representatives in first-occurrence
-                    # order is exactly equivalent — O(#classes) Python
-                    # work instead of O(#samples) at cohort width
-                    refc = ref_codes[var_cells].astype(np.int64)
-                    altc = alt_codes[var_cells].astype(np.int64)
-                    stb = np.fromiter((1 if st else 0
-                                       for st in starting),
-                                      dtype=np.int64,
-                                      count=len(starting))
-                    arr = np.stack([refc, altc, stb], axis=1)
-                    _, first, invmap = np.unique(
-                        arr, axis=0, return_index=True,
-                        return_inverse=True)
-                    order = np.argsort(first, kind="stable")
-                    rank = np.empty(len(order), np.int64)
-                    rank[order] = np.arange(len(order))
-                    class_of = rank[invmap]       # per call, 1st-occ order
-                    reps = first[order]           # representative calls
-                    call_refs_u = [get_ref(var_cells[int(i)])
-                                   for i in reps]
-                    call_alts_u = [get_alts(var_cells[int(i)])
-                                   for i in reps]
-                    starting_u = [starting[int(i)] for i in reps]
-                    start_refs = [r for r, st
-                                  in zip(call_refs_u, starting_u) if st]
-                    merged_ref = M.merge_reference_allele(start_refs) \
-                        if start_refs else None
-                    alt_merge_ref = merged_ref \
-                        if merged_ref is not None else "N"
-                    merged_alts, lut_u, non_ref = M.merge_alt_alleles(
-                        call_refs_u, call_alts_u, alt_merge_ref)
-                    inv_rows_u = M.inverse_lut_matrix(
-                        np.asarray(lut_u), len(merged_alts) + 1)
-                    inv_rows = inv_rows_u[class_of]
-                    got = (merged_ref, merged_alts, non_ref, inv_rows,
-                           {})
-                    sig_cache[sig_key] = got
-                merged_ref, merged_alts, non_ref, inv_rows, _ = got
-                nm = len(merged_alts) + 1
-                if inv_bs.shape[2] < nm <= cap:
-                    grow = min(cap,
-                               max(max_merged,
-                                   1 << (nm - 1).bit_length()))
-                    inv_bs = np.pad(
-                        inv_bs,
-                        ((0, 0), (0, 0), (0, grow - inv_bs.shape[2])),
-                        constant_values=-1)
-                W = min(nm, inv_bs.shape[2])
-                rec_num_merged[members] = W
-                rec_has_nr[members] = non_ref
-                if nm > cap:
-                    rec_overflow.extend(members.tolist())
-                inv_w = inv_rows[:, :inv_bs.shape[2]]
-                inv_bs[np.ix_(members, s_var,
-                              np.arange(inv_w.shape[1]))] = inv_w[None]
-                if non_ref:
-                    nr_bs[np.ix_(members, s_var)] = inv_w[:, W - 1][None]
-                alts_list = list(merged_alts)
-                wrap = np.empty(1, dtype=object)
-                wrap[0] = alts_list
-                rec_alts[members] = wrap
-                if merged_ref is not None:
-                    wrap_r = np.empty(1, dtype=object)
-                    wrap_r[0] = merged_ref
-                    rec_refs[members] = wrap_r
-                else:
-                    for b in members.tolist():
-                        if start_any[b]:
-                            c0 = int(cells_mat[
-                                b, int(np.argmax(start_here[b]))])
-                            rec_refs[b] = (chr(ref_first[c0])
-                                           if ref_len[c0] == 1
-                                           else get_ref(c0))
-                fast_done[members] = True
-            # ref-block slots of fast-path records: identity REF +
-            # NON_REF -> the record's merged last slot, one scatter
-            rb_b, rb_s = np.nonzero(live_ok & ~var_mat
-                                    & fast_done[:, None])
-            if len(rb_b):
-                inv_bs[rb_b, rb_s, 0] = 0
-                ha = alt_ok[cells_mat[rb_b, rb_s]]
-                hb, hs = rb_b[ha], rb_s[ha]
-                inv_bs[hb, hs,
-                       rec_num_merged[hb].astype(np.int64) - 1] = 1
-                nr_bs[hb, hs] = 1
-    for b in var_bs:
-        b = int(b)
-        srows = np.nonzero(live_ok[b])[0]
-        var_sel = var_mat[b, srows]
-        s_var = srows[var_sel]
-        var_cells = [int(c) for c in cells_mat[b, s_var]]
-        starting = tuple(bool(start_eq_bs[b, s]) for s in s_var)
-        # spanning-deletion calls (cell has a deletion, record starts
-        # past the cell): rewritten to REF=N / ALT=*,<NON_REF> before
-        # the merge (handle_deletions, broad_combined_gvcf.cc:912-1078)
-        rewritten = tuple(c in del_state and not st
-                          for c, st in zip(var_cells, starting))
-        if any(rewritten):
-            # deletion-rewritten calls fold per-cell PL-argmin state
-            # into the merge: key by cell identity (per-query cache —
-            # del_state depends on the queried attributes)
-            sig = ("c", tuple(var_cells), starting)
-            cache = sig_cache_local
+    with profile.span("block.merge"):
+        if len(var_bs) and N:
+            # --- vectorized fast path: group variant records by their full
+            # per-slot (ref_code, alt_code, starting) signature; the merge
+            # runs once per group and the LUT scatter is one fancy-index op
+            # per group instead of per record.  Records with any
+            # deletion-rewritten call (a variant call of a deletion cell
+            # that does not start at the record: every cell with a
+            # deletion has a del_state) keep the per-record path below.
+            rw_any = g["rw_any"]
+            fast_bs = var_bs[~rw_any[var_bs]]
+            var_bs = var_bs[rw_any[var_bs]]
+            if len(fast_bs):
+                vm = var_mat[fast_bs]
+                scm = np.clip(cells_mat[fast_bs], 0, N - 1)
+                sig = np.full((len(fast_bs), S, 3), -1, dtype=np.int32)
+                sig[..., 0] = np.where(vm, ref_codes[scm], -1)
+                sig[..., 1] = np.where(vm, alt_codes[scm], -1)
+                sig[..., 2] = np.where(vm, start_eq[fast_bs], -1)
+                # bytes-key groupby: np.unique(axis=0) lexsorts the 3*S-wide
+                # rows (milliseconds per interval at 1000-sample width);
+                # hashing each row's bytes is linear
+                sig2 = np.ascontiguousarray(sig.reshape(len(fast_bs),
+                                                        3 * S))
+                row_bytes = sig2.view(np.uint8).reshape(len(fast_bs), -1)
+                grp: Dict[bytes, List[int]] = {}
+                for i in range(len(fast_bs)):
+                    grp.setdefault(row_bytes[i].tobytes(), []).append(i)
+                for idxs in grp.values():
+                    members = fast_bs[np.asarray(idxs, dtype=np.int64)]
+                    b0 = int(members[0])
+                    s_var = np.nonzero(var_mat[b0])[0]
+                    var_cells = [int(c) for c in cells_mat[b0, s_var]]
+                    starting = tuple(bool(x)
+                                     for x in start_eq[b0, s_var])
+                    sig_key = (tuple(ref_codes[var_cells].tolist()),
+                               tuple(alt_codes[var_cells].tolist()),
+                               starting)
+                    got = sig_cache.get(sig_key)
+                    if got is None:
+                        got = sig_cache[sig_key] = _merge_classes(
+                            var_cells, starting, ref_codes, alt_codes,
+                            get_ref, get_alts)
+                    merged_ref, merged_alts, non_ref, inv_rows, _ = got
+                    nm = len(merged_alts) + 1
+                    W = merged_width(nm)
+                    rec_num_merged[members] = W
+                    rec_has_nr[members] = non_ref
+                    if nm > cap:
+                        rec_overflow.extend(members.tolist())
+                    scatters.append((members, s_var, inv_rows[:, :W],
+                                     W - 1 if non_ref else -1))
+                    alts_list = list(merged_alts)
+                    wrap = np.empty(1, dtype=object)
+                    wrap[0] = alts_list
+                    rec_alts[members] = wrap
+                    if merged_ref is not None:
+                        wrap_r = np.empty(1, dtype=object)
+                        wrap_r[0] = merged_ref
+                        rec_refs[members] = wrap_r
+                    else:
+                        for b in members.tolist():
+                            if first_start[b] >= 0:
+                                rec_refs[b] = first_ref(b)
+        for b in var_bs:
+            b = int(b)
+            s_var = np.nonzero(var_mat[b])[0]
+            var_cells = [int(c) for c in cells_mat[b, s_var]]
+            starting = tuple(bool(start_eq[b, s]) for s in s_var)
+            # spanning-deletion calls (cell has a deletion, record starts
+            # past the cell): rewritten to REF=N / ALT=*,<NON_REF> before
+            # the merge (handle_deletions, broad_combined_gvcf.cc:912-1078)
+            rewritten = tuple(c in del_state and not st
+                              for c, st in zip(var_cells, starting))
+            if any(rewritten):
+                # deletion-rewritten calls fold per-cell PL-argmin state
+                # into the merge: key by cell identity (per-query cache —
+                # del_state depends on the queried attributes)
+                sig = ("c", tuple(var_cells), starting)
+                cache = sig_cache_local
+            else:
+                # the merge depends only on the (REF, ALT) string pattern:
+                # records sharing it reuse one merge + inverse-LUT result
+                sig = (tuple(ref_codes[var_cells].tolist()),
+                       tuple(alt_codes[var_cells].tolist()), starting)
+                cache = sig_cache
+            got = cache.get(sig)
+            if got is None:
+                call_refs, call_alts = [], []
+                for c, st, rw in zip(var_cells, starting, rewritten):
+                    if rw:
+                        call_refs.append("N")
+                        call_alts.append(del_state[c][0])
+                    else:
+                        call_refs.append(get_ref(c))
+                        call_alts.append(get_alts(c))
+                start_refs = [r for r, st in zip(call_refs, starting) if st]
+                merged_ref = M.merge_reference_allele(start_refs) \
+                    if start_refs else None
+                # suffix extension in the ALT merge needs a concrete REF
+                alt_merge_ref = merged_ref if merged_ref is not None else "N"
+                merged_alts, lut, non_ref = M.merge_alt_alleles(
+                    call_refs, call_alts, alt_merge_ref)
+                inv_rows = M.inverse_lut_matrix(
+                    np.asarray(lut), len(merged_alts) + 1)
+                # rewritten calls: compose merged->reduced with the cell's
+                # reduced->input LUT so the batched kernels do ONE remap
+                # equal to the reference's two-step rewrite+merge remap
+                for i, (c, rw) in enumerate(zip(var_cells, rewritten)):
+                    if rw:
+                        inv1 = del_state[c][2]
+                        row = inv_rows[i]
+                        comp = inv1[np.clip(row, 0, 2)]
+                        inv_rows[i] = np.where(row >= 0, comp, -1)
+                lut_rw = {i: np.asarray(lut[i]).copy()
+                          for i, rw in enumerate(rewritten) if rw}
+                got = (merged_ref, merged_alts, non_ref, inv_rows, lut_rw)
+                cache[sig] = got
+            merged_ref, merged_alts, non_ref, inv_rows, lut_rw = got
+            if any(rewritten):
+                del_rw[b, s_var[np.asarray(rewritten)]] = True
+            rec_has_nr[b] = non_ref
+            nm = len(merged_alts) + 1
+            W = merged_width(nm)
+            rec_num_merged[b] = W
+            if merged_ref is not None:
+                rec_refs[b] = merged_ref
+            elif first_start[b] >= 0:
+                rec_refs[b] = first_ref(b)
+            rec_alts[b] = list(merged_alts)
+            if nm > cap:
+                # more merged alleles than the cap: the device remap would
+                # silently truncate -> sequential splice (the sequential
+                # engine then applies the reference's too-many-alts skip)
+                rec_overflow.append(b)
+            # variant samples: their index in var_cells IS their position
+            # among the variant samples (one cell belongs to one row)
+            scatters.append((np.array([b]), s_var, inv_rows[:, :W],
+                             W - 1 if non_ref else -1))
+            # produce_GT x spanning deletion: the reference derives GT from
+            # the min-PL genotype in the REDUCED space, then remaps it onto
+            # the merge (broad_combined_gvcf.cc:912-1078 + GA4GH GT remap);
+            # the composed device remap cannot express the argmin, so the
+            # handful of rewritten calls get host-computed overrides
+            if plan.produce_gt and any(rewritten) and nm <= cap:
+                for i, (c, rw) in enumerate(zip(var_cells, rewritten)):
+                    if not rw:
+                        continue
+                    ov = _deletion_gt_override(
+                        c, del_state[c], lut_rw[i], nm, non_ref, plan,
+                        gt_fd, pl_fd, gt_info, pl_q)
+                    if ov is not None:
+                        gt_override[(b, int(s_var[i]))] = ov
+    # --- the LUTs, allocated once at the block's final width: identity
+    # rows for every live reference-block slot (REF at 0, NON_REF at the
+    # record's last merged slot), then the merged rows' scatters ---
+    with profile.span("block.grid"):
+        if native:
+            inv_bs, nr_bs = _NL.lut_fill(live, var_mat, cells_mat, alt_ok,
+                                         rec_num_merged, width)
         else:
-            # the merge depends only on the (REF, ALT) string pattern:
-            # records sharing it reuse one merge + inverse-LUT result
-            sig = (tuple(ref_codes[var_cells].tolist()),
-                   tuple(alt_codes[var_cells].tolist()), starting)
-            cache = sig_cache
-        got = cache.get(sig)
-        if got is None:
-            call_refs, call_alts = [], []
-            for c, st, rw in zip(var_cells, starting, rewritten):
-                if rw:
-                    call_refs.append("N")
-                    call_alts.append(del_state[c][0])
-                else:
-                    call_refs.append(get_ref(c))
-                    call_alts.append(get_alts(c))
-            start_refs = [r for r, st in zip(call_refs, starting) if st]
-            merged_ref = M.merge_reference_allele(start_refs) \
-                if start_refs else None
-            # suffix extension in the ALT merge needs a concrete REF
-            alt_merge_ref = merged_ref if merged_ref is not None else "N"
-            merged_alts, lut, non_ref = M.merge_alt_alleles(
-                call_refs, call_alts, alt_merge_ref)
-            inv_rows = M.inverse_lut_matrix(
-                np.asarray(lut), len(merged_alts) + 1)
-            # rewritten calls: compose merged->reduced with the cell's
-            # reduced->input LUT so the batched kernels do ONE remap
-            # equal to the reference's two-step rewrite+merge remap
-            for i, (c, rw) in enumerate(zip(var_cells, rewritten)):
-                if rw:
-                    inv1 = del_state[c][2]
-                    row = inv_rows[i]
-                    comp = inv1[np.clip(row, 0, 2)]
-                    inv_rows[i] = np.where(row >= 0, comp, -1)
-            lut_rw = {i: np.asarray(lut[i]).copy()
-                      for i, rw in enumerate(rewritten) if rw}
-            got = (merged_ref, merged_alts, non_ref, inv_rows, lut_rw)
-            cache[sig] = got
-        merged_ref, merged_alts, non_ref, inv_rows, lut_rw = got
-        if any(rewritten):
-            del_rw[b, s_var[np.asarray(rewritten)]] = True
-        rec_has_nr[b] = non_ref
-        nm = len(merged_alts) + 1
-        if inv_bs.shape[2] < nm <= cap:
-            grow = min(cap,
-                       max(max_merged, 1 << (nm - 1).bit_length()))
-            inv_bs = np.pad(inv_bs,
-                            ((0, 0), (0, 0), (0, grow - inv_bs.shape[2])),
-                            constant_values=-1)
-        rec_num_merged[b] = min(nm, inv_bs.shape[2])
-        if merged_ref is not None:
-            rec_refs[b] = merged_ref
-        elif start_here[b].any():
-            c0 = int(cells_mat[b, int(np.argmax(start_here[b]))])
-            rec_refs[b] = (chr(ref_first[c0]) if ref_len[c0] == 1
-                           else get_ref(c0))
-        rec_alts[b] = list(merged_alts)
-        if nm > cap:
-            # more merged alleles than the cap: the device remap would
-            # silently truncate -> sequential splice (the sequential
-            # engine then applies the reference's too-many-alts skip)
-            rec_overflow.append(b)
-        W = min(nm, inv_bs.shape[2])
-        # variant samples: their index in var_cells IS their position
-        # among var-selected srows (one cell belongs to one row)
-        inv_w = inv_rows[:, :inv_bs.shape[2]]
-        inv_bs[b, s_var[:, None],
-               np.arange(inv_w.shape[1])[None, :]] = inv_w
-        if non_ref:
-            nr_bs[b, s_var] = inv_w[:, W - 1]
-        # ref-block samples: identity REF + NON_REF -> merged last slot
-        s_rb = srows[~var_sel]
-        if len(s_rb):
-            inv_bs[b, s_rb, 0] = 0
-            has_alt = alt_ok[cells_mat[b, s_rb]]
-            inv_bs[b, s_rb[has_alt], W - 1] = 1
-            nr_bs[b, s_rb[has_alt]] = 1
-        # produce_GT x spanning deletion: the reference derives GT from
-        # the min-PL genotype in the REDUCED space, then remaps it onto
-        # the merge (broad_combined_gvcf.cc:912-1078 + GA4GH GT remap);
-        # the composed device remap cannot express the argmin, so the
-        # handful of rewritten calls get host-computed overrides
-        if plan.produce_gt and any(rewritten) and nm <= cap:
-            for i, (c, rw) in enumerate(zip(var_cells, rewritten)):
-                if not rw:
-                    continue
-                ov = _deletion_gt_override(
-                    c, del_state[c], lut_rw[i], nm, non_ref, plan,
-                    gt_fd, pl_fd, gt_info, pl_q)
-                if ov is not None:
-                    gt_override[(b, int(s_var[i]))] = ov
-    # effective block width after any allele-merge growth (the PL/AD
-    # INPUT slabs are store-global maxima from dense_layout — the remap
-    # masks make any width >= the true per-cell length exact)
-    max_merged = inv_bs.shape[2]
+            inv_bs, nr_bs = _lut_numpy(live, var_mat, cells_mat, alt_ok,
+                                       rec_num_merged, width)
+    for members, s_var, inv_w, nr_col in scatters:
+        inv_bs[np.ix_(members, s_var, np.arange(inv_w.shape[1]))] = \
+            inv_w[None]
+        if nr_col >= 0:
+            nr_bs[np.ix_(members, s_var)] = inv_w[:, nr_col][None]
+    max_merged = width
     # splice decision is plan-driven: records carrying a valid queried
     # field the block path cannot realize go to the sequential engine
-    handled = plan.handled
-    rec_hasother = np.zeros(B, dtype=bool)
+    rec_hasother = g["hasother"]
     if rec_overflow:
         rec_hasother[rec_overflow] = True
-    for name, fd in store.fields.items():
-        if name in handled or fd.valid is None or not fd.valid.any():
-            continue
-        if not qc.is_queried(name):
-            # stored but unqueried fields never render (the sequential
-            # writer only consumes qc.attributes) -> no splice needed
-            continue
-        if N:
-            rec_hasother |= (live_ok & fd.valid[safe_cm]).any(axis=1)
-    # ploidy beyond the batched enumeration cap: splice (the genotype
-    # count explodes combinatorially; the reference's general-ploidy
-    # iterative enumeration territory, variant_field_handler.cc:199-296)
-    if N and gt_fd is not None and qc.is_queried("GT"):
-        cell_gt_bad = getattr(store, "_gt_bad_cache", None)
-        if cell_gt_bad is None:
-            with profile.rebuild("gt_bad"):
-                glens = gt_fd.lens()
-                if gt_info is not None:
-                    # map stored length -> ploidy via the few distinct
-                    # lengths (searchsorted lookup; never a per-cell loop)
-                    uniq = np.unique(glens)
-                    pl_u = np.array([gt_info.length.ploidy(int(g)) if g
-                                     else 0 for g in uniq], dtype=np.int64)
-                    pls = pl_u[np.searchsorted(uniq, glens)]
-                else:
-                    pls = glens
-                cell_gt_bad = gt_fd.valid & (pls > PLOIDY_CAP)
-            store._gt_bad_cache = cell_gt_bad
-        rec_hasother |= (live_ok & cell_gt_bad[safe_cm]).any(axis=1)
-    gt_len_bs = np.where(live_ok, gt_len_sc[s_grid, live_k],
-                         0).astype(np.int32)
-    if N and gt_fd is not None:
-        # invalid GT -> length 0 (renders '.', matching CallView rules)
-        gt_len_bs = np.where(
-            live_ok & _eff_valid_store(store, "GT", N)[safe_cm],
-            gt_len_bs, 0)
+    gt_len_bs = g["gt_len"]
     blk = CellBlock(col=col, end=end, pl=pl, pl_len=pl_len, ad=ad,
                     ad_len=ad_len, gt=gt, gq=gq, dp=dp, min_dp=min_dp,
                     dp_info=dp_info, info_f=info_f, info_i=info_i,
                     info_fs=info_fs,
                     inv_bs=inv_bs, nr_bs=nr_bs, starts=starts,
                     rec_num_merged=rec_num_merged, rec_has_nr=rec_has_nr,
-                    live=live.astype(np.int32), del_rw=del_rw,
+                    live=live, del_rw=del_rw,
                     gt_len_bs=gt_len_bs, ploidy=ploidy,
                     gt_phase=plan.gt_phase)
     # the slab tensors come from the store-wide layout cache: the
@@ -933,13 +827,20 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
     if not return_meta:
         return blk
     # --- gathered extras + effective-validity masks for the writer ---
-    CORE_FMT = {"GT", "GQ", "AD", "PL", "MIN_DP", "DP_FORMAT", "DP"}
     extras: Dict[str, ExtraField] = {}
-    eff_cache: Dict[str, np.ndarray] = {}
+    _slots: List[np.ndarray] = []
+
+    def slots():
+        """(live, safe store cell) [B, S], made when an extra needs
+        them."""
+        if not _slots:
+            _slots.extend((live >= 0, np.clip(cells_mat, 0, N - 1)))
+        return _slots
 
     def eff_valid_bs(name):
         if N == 0:
             return np.zeros((B, S), dtype=bool)
+        live_ok, safe_cm = slots()
         return live_ok & _eff_valid_store(store, name, N)[safe_cm]
 
     def gather_vals(name, width, dtype=np.int32, fill=INT_MISSING):
@@ -952,6 +853,7 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
         fd = store.fields.get(name)
         if fd is None or N == 0:
             return out.reshape(B, S, width), lens_bs.reshape(B, S)
+        live_ok, safe_cm = slots()
         flat = safe_cm.reshape(-1)
         ok = live_ok.reshape(-1) & fd.valid[flat]
         sel = np.nonzero(ok)[0]
@@ -1072,27 +974,10 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
         for nm_h in (bin_f, cnt_f):
             extras[nm_h] = ExtraField(None, None,
                                       eff_valid_bs(nm_h) & ~del_rw)
-    valid_core = {name: eff_valid_bs(name)
-                  for name in CORE_FMT if name in store.fields}
-    # rows carrying ANY valid INFO median/sum input (exact superset of
-    # device-side validity): the combine restricts its cross-sample
-    # sorts to these rows — on wide cohorts the [F, B, S] median sorts
-    # are most of the device time, and gVCF ref bands carry none
-    med_rows = np.zeros(0, dtype=np.int64)
-    if info_f.shape[0] or info_i.shape[0] or info_fs.shape[0]:
-        med_any = lay.get("med_any_sc")
-        if med_any is None:
-            med_any = np.zeros(info_f.shape[1:] if info_f.shape[0]
-                               else (S, C), dtype=bool)
-            if info_f.shape[0]:
-                med_any |= np.isfinite(info_f).any(axis=0)
-            if info_i.shape[0]:
-                med_any |= (info_i != INT_MISSING).any(axis=0)
-            if info_fs.shape[0]:
-                med_any |= np.isfinite(info_fs).any(axis=0)
-            lay["med_any_sc"] = med_any
-        has_med = (live_ok & med_any[s_grid, live_k]).any(axis=1)
-        med_rows = np.nonzero(has_med)[0]
+    valid_core = dict(zip(core_names, g["core"])) if N else \
+        {name: np.zeros((B, S), dtype=bool) for name in core_names}
+    med_rows = np.nonzero(g["has_med"])[0] if med_any is not None \
+        else np.zeros(0, dtype=np.int64)
     meta = BlockRecordMeta(ends=rec_ends, refs=rec_refs,
                            alts=rec_alts,
                            is_ref_block_only=rec_refonly,
@@ -1102,6 +987,159 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
                            cells_mat=cells_mat, valid_core=valid_core,
                            gt_override=gt_override, med_rows=med_rows)
     return blk, meta
+
+
+def _live_at(col: np.ndarray, end: np.ndarray,
+             sts: np.ndarray) -> np.ndarray:
+    """[len(sts), S] column of each sample's live cell in its row of the
+    [S, C] layout (the last cell starting at or before the start whose
+    END covers it), -1 where none."""
+    S, C = col.shape
+    lv = np.full((len(sts), S), -1, dtype=np.int64)
+    for s in range(S):
+        idx = np.searchsorted(col[s], sts, side="right") - 1
+        ok = idx >= 0
+        idxc = np.clip(idx, 0, C - 1)
+        ok &= end[s, idxc] >= sts
+        lv[:, s] = np.where(ok, idxc, -1)
+    return lv
+
+
+def _grid_numpy(col, end, cell_of, starts, N, *, refblock, hasdel, ref_ok,
+                gt_valid, other, core, gt_len_sc, med_any_sc) -> dict:
+    """`native_loader.block_grid` in numpy, output for output: the
+    fallback where the native library is missing."""
+    S, C = col.shape
+    B = len(starts)
+    live = _live_at(col, end, starts)
+    live_ok = live >= 0
+    live_k = np.clip(live, 0, C - 1)
+    s_grid = np.arange(S)[None, :]
+    cells = np.where(live_ok, cell_of[s_grid, live_k], -1)
+    safe_cm = np.clip(cells, 0, max(N - 1, 0))
+
+    def at(table):
+        return live_ok & table[safe_cm] if N \
+            else np.zeros((B, S), dtype=bool)
+
+    col_mat = np.where(live_ok, col[s_grid, live_k], INT64_MAX)
+    starteq = live_ok & (col_mat == starts[:, None])
+    var = live_ok & ~at(refblock)
+    start_here = starteq & at(ref_ok)
+    first_start = np.full(B, -1, dtype=np.int64)
+    rows = np.nonzero(start_here.any(axis=1))[0]
+    if len(rows):
+        first_start[rows] = np.argmax(start_here[rows], axis=1)
+    hasother = np.zeros(B, dtype=bool)
+    for table in other:
+        hasother |= at(table).any(axis=1)
+    gt_len = np.where(live_ok, gt_len_sc[s_grid, live_k],
+                      0).astype(np.int32)
+    if gt_valid is not None:
+        # invalid GT -> length 0 (renders '.', matching CallView rules)
+        gt_len = np.where(at(gt_valid), gt_len, 0)
+    endmin = np.where(live_ok, end[s_grid, live_k], INT64_MAX).min(
+        axis=1) if S else np.full(B, INT64_MAX, dtype=np.int64)
+    return {"live": live.astype(np.int32), "cells": cells,
+            "starteq": starteq, "var": var, "gt_len": gt_len,
+            "core": [at(table) for table in core], "endmin": endmin,
+            "is_var": var.any(axis=1), "hasdel": at(hasdel).any(axis=1),
+            "first_start": first_start,
+            "rw_any": (var & at(hasdel) & ~starteq).any(axis=1),
+            "has_med": (live_ok & med_any_sc[s_grid, live_k]).any(axis=1)
+            if med_any_sc is not None else None,
+            "hasother": hasother}
+
+
+def _lut_numpy(live, var, cells, alt_ok, rec_num_merged, width):
+    """`native_loader.lut_fill` in numpy: -1 LUTs at the final width,
+    and each live reference-block slot's identity row (REF at 0, NON_REF
+    at its record's last merged slot where its ALT is valid)."""
+    B, S = live.shape
+    inv_bs = np.full((B, S, width), -1, dtype=np.int32)
+    nr_bs = np.full((B, S), -1, dtype=np.int32)
+    rb_b, rb_s = np.nonzero((live >= 0) & ~var)
+    inv_bs[rb_b, rb_s, 0] = 0
+    ha = alt_ok[cells[rb_b, rb_s]]
+    hb, hs = rb_b[ha], rb_s[ha]
+    inv_bs[hb, hs, rec_num_merged[hb].astype(np.int64) - 1] = 1
+    nr_bs[hb, hs] = 1
+    return inv_bs, nr_bs
+
+
+def _merge_classes(var_cells, starting, ref_codes, alt_codes, get_ref,
+                   get_alts):
+    """(merged REF, merged ALTs, NON_REF present, inverse-LUT row per
+    call, {}) of one signature group's variant calls.  Identical (REF,
+    ALT, starting) calls are deduplicated to CLASSES before the
+    Python-string merge: the merge is idempotent over duplicate calls
+    (seen-dict / longest-REF updates are no-ops), so running it over
+    class representatives in first-occurrence order is exactly
+    equivalent — O(#classes) Python work instead of O(#samples) at
+    cohort width."""
+    refc = ref_codes[var_cells].astype(np.int64)
+    altc = alt_codes[var_cells].astype(np.int64)
+    stb = np.fromiter((1 if st else 0 for st in starting), dtype=np.int64,
+                      count=len(starting))
+    arr = np.stack([refc, altc, stb], axis=1)
+    _, first, invmap = np.unique(arr, axis=0, return_index=True,
+                                 return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    class_of = rank[invmap]       # per call, 1st-occ order
+    reps = first[order]           # representative calls
+    call_refs_u = [get_ref(var_cells[int(i)]) for i in reps]
+    call_alts_u = [get_alts(var_cells[int(i)]) for i in reps]
+    starting_u = [starting[int(i)] for i in reps]
+    start_refs = [r for r, st in zip(call_refs_u, starting_u) if st]
+    merged_ref = M.merge_reference_allele(start_refs) \
+        if start_refs else None
+    alt_merge_ref = merged_ref if merged_ref is not None else "N"
+    merged_alts, lut_u, non_ref = M.merge_alt_alleles(
+        call_refs_u, call_alts_u, alt_merge_ref)
+    inv_rows_u = M.inverse_lut_matrix(np.asarray(lut_u),
+                                      len(merged_alts) + 1)
+    return merged_ref, merged_alts, non_ref, inv_rows_u[class_of], {}
+
+
+def _gt_bad(store, gt_fd, gt_info) -> np.ndarray:
+    """Per cell: a valid GT of a ploidy past PLOIDY_CAP (store-cached)."""
+    cell_gt_bad = getattr(store, "_gt_bad_cache", None)
+    if cell_gt_bad is None:
+        with profile.rebuild("gt_bad"):
+            glens = gt_fd.lens()
+            if gt_info is not None:
+                # map stored length -> ploidy via the few distinct
+                # lengths (searchsorted lookup; never a per-cell loop)
+                uniq = np.unique(glens)
+                pl_u = np.array([gt_info.length.ploidy(int(g)) if g
+                                 else 0 for g in uniq], dtype=np.int64)
+                pls = pl_u[np.searchsorted(uniq, glens)]
+            else:
+                pls = glens
+            cell_gt_bad = gt_fd.valid & (pls > PLOIDY_CAP)
+        store._gt_bad_cache = cell_gt_bad
+    return cell_gt_bad
+
+
+def _med_any(lay, info_f, info_i, info_fs, S, C) -> Optional[np.ndarray]:
+    """[S, C] any valid INFO median/sum input per layout slot (cached on
+    the layout); None where the query has no such field."""
+    if not (info_f.shape[0] or info_i.shape[0] or info_fs.shape[0]):
+        return None
+    med_any = lay.get("med_any_sc")
+    if med_any is None:
+        med_any = np.zeros(info_f.shape[1:] if info_f.shape[0]
+                           else (S, C), dtype=bool)
+        if info_f.shape[0]:
+            med_any |= np.isfinite(info_f).any(axis=0)
+        if info_i.shape[0]:
+            med_any |= (info_i != INT_MISSING).any(axis=0)
+        if info_fs.shape[0]:
+            med_any |= np.isfinite(info_fs).any(axis=0)
+        lay["med_any_sc"] = med_any
+    return med_any
 
 
 def _allele_meta(ref_fd, alt_fd, N: int):

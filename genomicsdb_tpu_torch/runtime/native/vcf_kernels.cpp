@@ -1717,58 +1717,209 @@ extern "C" int gdb_widen_scatter(
 }
 
 // ---------------------------------------------------------------------------
-// Live-cell sweep: for ascending record starts, the per-(record, sample)
-// live cell is the last cell with col <= start whose END covers start —
-// a monotone pointer walk (O(C+B) per sample) replacing B*S binary
-// searches plus three full [B, S] numpy gathers (cells / start-eq /
-// end-min).  Threaded over samples with per-thread end-min partials.
+// A chunk's records x samples grid in one pass.  For ascending record
+// starts, the per-(record, sample) live cell is the last cell with
+// col <= start whose END covers start: a monotone pointer walk per
+// sample.  Threads own runs of records; each keeps every sample's
+// cursor, seeks it once with a binary search, and caches the current
+// cell's flags, so the per-slot outputs are written row by row and the
+// per-cell tables are read once per cell, not once per slot.  The
+// per-record reductions (end minimum, any variant, any deletion, the
+// first sample whose cell starts here, ...) stay inside the thread that
+// owns the record.  Every output pointer may be null.
 // ---------------------------------------------------------------------------
 
-extern "C" int gdb_live_sweep(
-    const int64_t* col, const int64_t* end_, const int64_t* cell_of,
-    const int64_t* starts, int64_t B, int64_t S, int64_t C,
-    int32_t* live, int64_t* cells, uint8_t* starteq, int64_t* endmin) {
-  if (B <= 0 || S <= 0) return 0;
-  constexpr int64_t I64MAX = INT64_MAX;
-  for (int64_t b = 0; b < B; ++b) endmin[b] = I64MAX;
-  std::vector<std::vector<int64_t>> partials;
-  auto sweep = [&](int64_t s0, int64_t s1, int64_t* emin) {
-    for (int64_t s = s0; s < s1; ++s) {
-      const int64_t* cs = col + s * C;
-      const int64_t* es = end_ + s * C;
-      // seek to the first start: interval queries touch a tiny span of
-      // a store-wide [S, C] layout — the walk must not start at cell 0
-      int64_t j = static_cast<int64_t>(
-          std::upper_bound(cs, cs + C, starts[0]) - cs) - 1;
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t st = starts[b];
-        while (j + 1 < C && cs[j + 1] <= st) ++j;
-        const bool ok = j >= 0 && es[j] >= st;
-        live[b * S + s] = ok ? static_cast<int32_t>(j) : -1;
-        if (cells)
-          cells[b * S + s] = ok ? cell_of[s * C + j] : -1;
-        if (starteq)
-          starteq[b * S + s] = ok && cs[j] == st;
-        if (ok && es[j] < emin[b]) emin[b] = es[j];
+struct GridArgs {
+  const int64_t* col;            // [S, C] cell starts, INT64_MAX padded
+  const int64_t* end;            // [S, C]
+  const int64_t* cell_of;        // [S, C] store cell index
+  const int32_t* gt_len_sc;      // [S, C] stored GT length
+  const uint8_t* med_any_sc;     // [S, C] any INFO median/sum input,
+                                 //     or null
+  const int64_t* starts;         // [B] ascending
+  int64_t B, S, C, N;
+  const uint8_t* refblock;       // [N] per-cell flags
+  const uint8_t* hasdel;
+  const uint8_t* ref_ok;
+  const uint8_t* gt_valid;       // [N], or null: every GT valid
+  const uint8_t* const* other;   // n_other [N] tables ORed into hasother
+  int64_t n_other;
+  const uint8_t* const* core;    // n_core [N] validity tables
+  int64_t n_core;
+  int32_t* live;                 // [B, S] live cell's column in the row
+  int64_t* cells;                // [B, S] its store cell, -1 none
+  uint8_t* starteq;              // [B, S] it starts at the record
+  uint8_t* var;                  // [B, S] it is not a pure ref block
+  int32_t* gt_len;               // [B, S] GT length where GT is valid
+  uint8_t* const* core_out;      // n_core [B, S] live & core[k]
+  int64_t* endmin;               // [B] least END of the live cells
+  uint8_t* is_var;               // [B] any var
+  uint8_t* rec_hasdel;           // [B] any live cell with a deletion
+  int64_t* first_start;          // [B] first sample starting here with
+                                 //     a valid REF, -1 none
+  uint8_t* rw_any;               // [B] any var cell with a deletion
+                                 //     that does not start here
+  uint8_t* has_med;              // [B] any live med_any_sc
+  uint8_t* hasother;             // [B] any live cell valid in other[]
+};
+
+namespace {
+
+enum : uint32_t {
+  kRefBlock = 1u, kHasDel = 2u, kRefOk = 4u, kGtValid = 8u, kOther = 16u,
+  kMed = 32u, kCore0 = 64u
+};
+
+struct Cursor {
+  int64_t j;      // current cell's column in the row, -1 before the first
+  int64_t next;   // col[j + 1], INT64_MAX past the row
+  int64_t col, end, cell;
+  int32_t gtl;
+  uint32_t bits;
+};
+
+inline void load_cursor(const GridArgs& a, int64_t s, Cursor& c) {
+  const int64_t o = s * a.C + c.j;
+  c.next = c.j + 1 < a.C ? a.col[o + 1] : INT64_MAX;
+  if (c.j < 0) {
+    c.col = INT64_MAX;
+    c.end = INT64_MIN;
+    c.cell = -1;
+    c.gtl = 0;
+    c.bits = 0;
+    return;
+  }
+  c.col = a.col[o];
+  c.end = a.end[o];
+  c.cell = a.cell_of[o];
+  c.gtl = a.gt_len_sc[o];
+  uint32_t bits = a.med_any_sc && a.med_any_sc[o] ? kMed : 0u;
+  const int64_t ci = c.cell;
+  if (ci >= 0 && ci < a.N) {
+    if (a.refblock[ci]) bits |= kRefBlock;
+    if (a.hasdel[ci]) bits |= kHasDel;
+    if (a.ref_ok[ci]) bits |= kRefOk;
+    if (a.gt_valid && a.gt_valid[ci]) bits |= kGtValid;
+    for (int64_t k = 0; k < a.n_other; ++k)
+      if (a.other[k][ci]) { bits |= kOther; break; }
+    for (int64_t k = 0; k < a.n_core; ++k)
+      if (a.core[k][ci]) bits |= kCore0 << k;
+  }
+  c.bits = bits;
+}
+
+void grid_records(const GridArgs& a, int64_t b0, int64_t b1) {
+  const int64_t S = a.S, C = a.C;
+  std::vector<Cursor> cur(S);
+  for (int64_t s = 0; s < S; ++s) {
+    const int64_t* cs = a.col + s * C;
+    cur[s].j = static_cast<int64_t>(
+        std::upper_bound(cs, cs + C, a.starts[b0]) - cs) - 1;
+    load_cursor(a, s, cur[s]);
+  }
+  for (int64_t b = b0; b < b1; ++b) {
+    const int64_t st = a.starts[b];
+    const int64_t row = b * S;
+    int64_t emin = INT64_MAX, first = -1;
+    uint32_t any = 0;           // OR of the per-record flags below
+    bool any_var = false, any_rw = false;
+    for (int64_t s = 0; s < S; ++s) {
+      Cursor& c = cur[s];
+      if (c.next <= st) {
+        const int64_t* cs = a.col + s * C;
+        do { ++c.j; } while (c.j + 1 < C && cs[c.j + 1] <= st);
+        load_cursor(a, s, c);
       }
+      const bool ok = c.end >= st;      // false before the first cell
+      const bool seq = ok && c.col == st;
+      const bool v = ok && !(c.bits & kRefBlock);
+      if (a.live) a.live[row + s] = ok ? static_cast<int32_t>(c.j) : -1;
+      if (a.cells) a.cells[row + s] = ok ? c.cell : -1;
+      if (a.starteq) a.starteq[row + s] = seq;
+      if (a.var) a.var[row + s] = v;
+      if (a.gt_len)
+        a.gt_len[row + s] =
+            ok && (!a.gt_valid || (c.bits & kGtValid)) ? c.gtl : 0;
+      for (int64_t k = 0; k < a.n_core; ++k)
+        a.core_out[k][row + s] = ok && (c.bits & (kCore0 << k));
+      if (!ok) continue;
+      if (c.end < emin) emin = c.end;
+      any |= c.bits;
+      any_var |= v;
+      any_rw |= v && (c.bits & kHasDel) && !seq;
+      if (first < 0 && seq && (c.bits & kRefOk)) first = s;
     }
-  };
-  if (B * S < (1 << 14) || S < 2) {
-    sweep(0, S, endmin);
+    if (a.endmin) a.endmin[b] = emin;
+    if (a.is_var) a.is_var[b] = any_var;
+    if (a.rec_hasdel) a.rec_hasdel[b] = (any & kHasDel) != 0;
+    if (a.first_start) a.first_start[b] = first;
+    if (a.rw_any) a.rw_any[b] = any_rw;
+    if (a.has_med) a.has_med[b] = (any & kMed) != 0;
+    if (a.hasother) a.hasother[b] = (any & kOther) != 0;
+  }
+}
+
+}  // namespace
+
+extern "C" int gdb_block_grid(const GridArgs* args) {
+  const GridArgs& a = *args;
+  if (a.B <= 0) return 0;
+  if (a.n_core > 25) return -1;  // kCore0 << k must fit 32 bits
+  if (a.S <= 0) {                // no samples: every record empty
+    for (int64_t b = 0; b < a.B; ++b) {
+      if (a.endmin) a.endmin[b] = INT64_MAX;
+      if (a.is_var) a.is_var[b] = 0;
+      if (a.rec_hasdel) a.rec_hasdel[b] = 0;
+      if (a.first_start) a.first_start[b] = -1;
+      if (a.rw_any) a.rw_any[b] = 0;
+      if (a.has_med) a.has_med[b] = 0;
+      if (a.hasother) a.hasother[b] = 0;
+    }
     return 0;
   }
-  // per-CHUNK end-min partials (the pool schedules chunks dynamically,
-  // so partials cannot be per thread), merged after the run
-  const int64_t nchunks = std::min<int64_t>(S, 32);
-  const int64_t step = (S + nchunks - 1) / nchunks;
-  partials.assign(nchunks, std::vector<int64_t>(B, I64MAX));
-  gdbpool::par_for(nchunks, [&](int64_t c0, int64_t c1) {
-    for (int64_t c = c0; c < c1; ++c)
-      sweep(c * step, std::min<int64_t>(S, (c + 1) * step),
-            partials[c].data());
-  }, B * S);
-  for (auto& pr : partials)
-    for (int64_t b = 0; b < B; ++b)
-      if (pr[b] < endmin[b]) endmin[b] = pr[b];
+  // a run of records per task: each task seeks every sample's cursor
+  // once, so tasks stay few and long
+  const int64_t ntask = std::min<int64_t>(a.B, 16);
+  const int64_t step = (a.B + ntask - 1) / ntask;
+  gdbpool::par_for(ntask, [&a, step](int64_t t0, int64_t t1) {
+    for (int64_t t = t0; t < t1; ++t) {
+      const int64_t b0 = t * step, b1 = std::min(a.B, b0 + step);
+      if (b0 < b1) grid_records(a, b0, b1);
+    }
+  }, a.B * a.S);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// A block's allele LUTs at their final width W, every slot written once:
+// -1 rows for dead slots and variant cells (whose merged rows the caller
+// scatters after), and for every live reference-block cell the identity
+// row: slot 0 = REF, and where its ALT is valid slot W_b - 1 = NON_REF
+// with nr = 1, W_b being the record's merged width.
+// ---------------------------------------------------------------------------
+
+extern "C" int gdb_lut_fill(
+    const int32_t* live, const uint8_t* var, const int64_t* cells,
+    const uint8_t* alt_ok, int64_t N, const int32_t* rec_num_merged,
+    int64_t B, int64_t S, int64_t W, int32_t* inv, int32_t* nr) {
+  if (B <= 0 || S <= 0 || W <= 0) return 0;
+  gdbpool::par_for(B, [=](int64_t b0, int64_t b1) {
+    for (int64_t b = b0; b < b1; ++b) {
+      const int64_t wb = rec_num_merged[b];
+      for (int64_t s = 0; s < S; ++s) {
+        const int64_t i = b * S + s;
+        int32_t* row = inv + i * W;
+        for (int64_t w = 0; w < W; ++w) row[w] = -1;
+        nr[i] = -1;
+        if (live[i] < 0 || var[i]) continue;
+        row[0] = 0;
+        const int64_t ci = cells[i];
+        if (ci >= 0 && ci < N && alt_ok[ci] && wb >= 1 && wb <= W) {
+          row[wb - 1] = 1;
+          nr[i] = 1;
+        }
+      }
+    }
+  }, B * S * W);
   return 0;
 }

@@ -1080,39 +1080,143 @@ def widen_scatter(narrow: np.ndarray, rows: np.ndarray, miss: int,
     return True if rc == 0 else None
 
 
-def live_sweep(col: np.ndarray, end: np.ndarray, cell_of, starts):
-    """(live int32 [B,S], cells int64 [B,S], starteq bool [B,S],
-    endmin int64 [B]) for ascending starts over the [S, C] sorted cell
-    layout — one monotone pointer walk per sample (threaded), replacing
-    per-sample binary searches + three [B, S] numpy gathers.  None when
-    the native library is unavailable."""
+def _grid_fields():
+    p, pp, i = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), \
+        ctypes.c_int64
+    return ([(n, p) for n in ("col", "end", "cell_of", "gt_len_sc",
+                              "med_any_sc", "starts")]
+            + [(n, i) for n in ("B", "S", "C", "N")]
+            + [(n, p) for n in ("refblock", "hasdel", "ref_ok",
+                                "gt_valid")]
+            + [("other", pp), ("n_other", i), ("core", pp), ("n_core", i)]
+            + [(n, p) for n in ("live", "cells", "starteq", "var",
+                                "gt_len")]
+            + [("core_out", pp)]
+            + [(n, p) for n in ("endmin", "is_var", "rec_hasdel",
+                                "first_start", "rw_any", "has_med",
+                                "hasother")])
+
+
+class _GridArgs(ctypes.Structure):
+    """`struct GridArgs` of native/vcf_kernels.cpp, field for field."""
+    _fields_ = _grid_fields()
+
+
+def _ptr(arr) -> Optional[int]:
+    return None if arr is None else arr.ctypes.data
+
+
+def _ptrs(arrs):
+    """A C array of the arrays' data pointers (a struct that holds it
+    keeps it alive)."""
+    return (ctypes.c_void_p * max(len(arrs), 1))(
+        *[a.ctypes.data for a in arrs])
+
+
+def _grid_lib():
+    """The native library with `gdb_block_grid` and `gdb_lut_fill`
+    bound, or None."""
     lib = get_lib()
+    if lib is not None and not hasattr(lib, "_grid_bound"):
+        lib.gdb_block_grid.restype = ctypes.c_int
+        lib.gdb_block_grid.argtypes = [ctypes.POINTER(_GridArgs)]
+        lib.gdb_lut_fill.restype = ctypes.c_int
+        lib.gdb_lut_fill.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64, ctypes.c_void_p] + [ctypes.c_int64] * 3 + [
+            ctypes.c_void_p] * 2
+        lib._grid_bound = True
+    return lib
+
+
+def block_grid(col: np.ndarray, end: np.ndarray, cell_of: np.ndarray,
+               starts: np.ndarray, n_cells: int, *, refblock, hasdel,
+               ref_ok, gt_len_sc, gt_valid=None, other=(), core=(),
+               med_any_sc=None, slots: bool = True) -> Optional[dict]:
+    """A chunk's records x samples grid over the [S, C] sorted cell
+    layout for ascending `starts`, in one threaded pass
+    (`gdb_block_grid`).  Per-cell tables, bool [n_cells]: `refblock`,
+    `hasdel`, `ref_ok`, `gt_valid` (None: every GT valid), each of
+    `other` and of `core`; per-slot tables, [S, C]: `gt_len_sc` (int32)
+    and `med_any_sc` (bool, or None).
+
+    Per record: `endmin` (least END of the live cells, INT64_MAX none),
+    `is_var`, `hasdel`, `first_start` (first sample whose live cell
+    starts here with a valid REF, -1 none), `rw_any` (a variant cell in
+    `hasdel` that does not start here), `has_med` (None without
+    `med_any_sc`), `hasother` (a live cell valid in any of `other`).
+    With `slots`, per (record, sample) too: `live` (int32, the cell's
+    column in its row, -1 none), `cells` (int64 store cell, -1),
+    `starteq`, `var` (live and not `refblock`), `gt_len` (`gt_len_sc`
+    where live and GT valid, else 0) and `core` (live and each of
+    `core`).  None without the native library."""
+    lib = _grid_lib()
     if lib is None:
         return None
-    if not hasattr(lib, "_sweep_bound"):
-        i64 = ctypes.c_int64
-        p64 = np.ctypeslib.ndpointer(np.int64)
-        lib.gdb_live_sweep.restype = ctypes.c_int
-        lib.gdb_live_sweep.argtypes = [
-            p64, p64, ctypes.c_void_p, p64, i64, i64, i64,
-            np.ctypeslib.ndpointer(np.int32), ctypes.c_void_p,
-            ctypes.c_void_p, p64]
-        lib._sweep_bound = True
+
+    def flags(a):
+        return None if a is None else np.ascontiguousarray(a, dtype=bool)
     col = np.ascontiguousarray(col, dtype=np.int64)
     end = np.ascontiguousarray(end, dtype=np.int64)
+    cell_of = np.ascontiguousarray(cell_of, dtype=np.int64)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
+    gt_len_sc = np.ascontiguousarray(gt_len_sc, dtype=np.int32)
     S, C = col.shape
     B = len(starts)
-    live = np.empty((B, S), np.int32)
-    cells = np.empty((B, S), np.int64)
-    starteq = np.empty((B, S), np.uint8)
-    endmin = np.empty(B, np.int64)
-    cell_of = np.ascontiguousarray(cell_of, dtype=np.int64)
-    rc = lib.gdb_live_sweep(
-        col, end, cell_of.ctypes.data_as(ctypes.c_void_p), starts,
-        B, S, C, live,
-        cells.ctypes.data_as(ctypes.c_void_p),
-        starteq.ctypes.data_as(ctypes.c_void_p), endmin)
-    if rc != 0:
+    tables = {n: flags(a) for n, a in (
+        ("refblock", refblock), ("hasdel", hasdel), ("ref_ok", ref_ok),
+        ("gt_valid", gt_valid))}
+    other = [flags(a) for a in other]
+    core = [flags(a) for a in core]
+    med_any_sc = flags(med_any_sc)
+    out = {"endmin": np.empty(B, np.int64), "is_var": np.empty(B, bool),
+           "hasdel": np.empty(B, bool), "first_start": np.empty(B, np.int64),
+           "rw_any": np.empty(B, bool), "hasother": np.empty(B, bool),
+           "has_med": np.empty(B, bool) if med_any_sc is not None
+           else None}
+    if slots:
+        out.update(live=np.empty((B, S), np.int32),
+                   cells=np.empty((B, S), np.int64),
+                   starteq=np.empty((B, S), bool),
+                   var=np.empty((B, S), bool),
+                   gt_len=np.empty((B, S), np.int32),
+                   core=[np.empty((B, S), bool) for _ in core])
+    args = _GridArgs(
+        col=_ptr(col), end=_ptr(end), cell_of=_ptr(cell_of),
+        gt_len_sc=_ptr(gt_len_sc), med_any_sc=_ptr(med_any_sc),
+        starts=_ptr(starts), B=B, S=S, C=C, N=n_cells,
+        **{n: _ptr(a) for n, a in tables.items()},
+        other=_ptrs(other), n_other=len(other), core=_ptrs(core),
+        n_core=len(core) if slots else 0,
+        live=_ptr(out.get("live")), cells=_ptr(out.get("cells")),
+        starteq=_ptr(out.get("starteq")), var=_ptr(out.get("var")),
+        gt_len=_ptr(out.get("gt_len")),
+        core_out=_ptrs(out["core"] if slots else []),
+        endmin=_ptr(out["endmin"]), is_var=_ptr(out["is_var"]),
+        rec_hasdel=_ptr(out["hasdel"]),
+        first_start=_ptr(out["first_start"]), rw_any=_ptr(out["rw_any"]),
+        has_med=_ptr(out["has_med"]), hasother=_ptr(out["hasother"]))
+    if lib.gdb_block_grid(ctypes.byref(args)) != 0:
         return None
-    return live, cells, starteq.view(bool), endmin
+    return out
+
+
+def lut_fill(live: np.ndarray, var: np.ndarray, cells: np.ndarray,
+             alt_ok: np.ndarray, rec_num_merged: np.ndarray, width: int):
+    """(inv_bs int32 [B, S, width], nr_bs int32 [B, S]) written once
+    (`gdb_lut_fill`) from `block_grid`'s `live`, `var` and `cells`: -1
+    everywhere but each live reference-block slot (`live` >= 0, not
+    `var`), which takes REF at 0 and, where its cell's ALT is valid,
+    NON_REF at its record's merged width - 1 with nr 1.  None without
+    the native library."""
+    lib = _grid_lib()
+    if lib is None:
+        return None
+    B, S = live.shape
+    inv = np.empty((B, S, width), np.int32)
+    nr = np.empty((B, S), np.int32)
+    alt_ok = np.ascontiguousarray(alt_ok, dtype=bool)
+    rnm = np.ascontiguousarray(rec_num_merged, dtype=np.int32)
+    lib.gdb_lut_fill(_ptr(live), _ptr(var), _ptr(cells), _ptr(alt_ok),
+                     len(alt_ok), _ptr(rnm), B, S, width, _ptr(inv),
+                     _ptr(nr))
+    return inv, nr
