@@ -10,7 +10,7 @@ fields, so one block can be fed to both.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import lru_cache
 
 import numpy as np
@@ -59,6 +59,17 @@ class CellBlock:
     # cohorts
     ploidy: int = 2            # max ploidy the block is sized for
     gt_phase: bool = False     # GT stored with interleaved phase slots
+    # the `Tables` of the store the block was built from (None: a block
+    # made by hand or by synthesize_cohort); its slabs' device copies
+    # and range checks are kept there
+    tables: object = field(default=None, compare=False, repr=False)
+
+    def derived(self, table, key, build):
+        """`build()`, kept as `table` under `key` in the block's store's
+        tables; built on every call for a block without a store."""
+        if self.tables is None:
+            return build()
+        return self.tables.get(table, key, build)
 
 
 @lru_cache(maxsize=64)

@@ -411,14 +411,24 @@ def dense_tensors(g: Dict[str, np.ndarray], device) -> tuple:
 
 def block_to_tensors(blk, device) -> tuple:
     """A CellBlock's arrays as tensors on `device`, in `combine_step`'s
-    argument order (the counterpart of the JAX `block_to_args`).  Takes
-    a block built by either package: both have the same fields."""
-    slabs = (blk.pl, blk.pl_len, blk.ad, blk.ad_len,
-             blk.gt, blk.gq, blk.dp, blk.min_dp, blk.dp_info, blk.info_f,
-             blk.info_i, blk.info_fs)
+    argument order (the counterpart of the JAX `block_to_args`).  Every
+    chunk of every query of a store shares the slabs of its store-wide
+    dense layout: their device copies are the store's table
+    `slab_upload`, so a query uploads them once, not once per chunk."""
+    slabs = slab_arrays(blk)
     with profile.span("device.upload"):
-        return _slab_tensors(blk, slabs, device) \
+        return blk.derived(
+            "slab_upload", (str(torch.device(device)), slabs),
+            lambda: tuple(to_tensor(a, device) for a in slabs)) \
             + tuple(to_tensor(a, device) for a in per_block_arrays(blk))
+
+
+def slab_arrays(blk) -> tuple:
+    """The block's 12 [S, C, ...] cell slabs, in combine_step's argument
+    order."""
+    return (blk.pl, blk.pl_len, blk.ad, blk.ad_len, blk.gt, blk.gq,
+            blk.dp, blk.min_dp, blk.dp_info, blk.info_f, blk.info_i,
+            blk.info_fs)
 
 
 def per_block_arrays(blk) -> tuple:
@@ -434,24 +444,6 @@ def per_block_arrays(blk) -> tuple:
         else np.full(blk.live.shape, gt_w, dtype=np.int32)
     return (blk.inv_bs, blk.nr_bs, blk.rec_num_merged, has_nr, blk.live,
             del_rw, gt_lens)
-
-
-def _slab_tensors(blk, slabs, device) -> tuple:
-    """The 12 [S, C, ...] cell slabs on `device`.  A block from the
-    store path carries its store-wide layout (`_dense_layout`), whose
-    slabs every chunk of every query shares: their device copies are
-    cached there, so a query uploads them once, not once per chunk."""
-    lay = getattr(blk, "_dense_layout", None)
-    if lay is None:
-        return tuple(to_tensor(a, device) for a in slabs)
-    key = ("_torch_slabs", str(torch.device(device)))
-    hit = lay.get(key)
-    if hit is not None and all(a is b for a, b in zip(hit[0], slabs)):
-        return hit[1]
-    with profile.rebuild("slab_upload"):
-        tensors = tuple(to_tensor(a, device) for a in slabs)
-    lay[key] = (slabs, tensors)
-    return tensors
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -14,7 +14,7 @@ of `genomicsdb_tpu.ops.pallas_combine`).
                           and chip_smoke.py's timing call it)
   fused_gather_remap_ref  the plain twin (torch ops, any device)
   _narrow_inputs_ok,      the host range checks that allow the narrow
-  _narrow_scalars_ok      form, cached on the store-wide layout
+  _narrow_scalars_ok      form, kept in the block's store's tables
   combine_step_fused      the kernel plus the cross-sample reductions,
                           under the JAX package's gates
   combine_block           the block engine's combine: combine_step_fused
@@ -80,36 +80,27 @@ def _fits_int16(arrays) -> bool:
     return True
 
 
-def _range_check(blk, key: str, names) -> bool:
-    """_fits_int16 of the block's `names` slabs, cached on the block's
-    store-wide dense layout under `key` with the slabs it was computed
-    from: every chunk and query of a store shares the layout, and a
-    block whose slabs are other arrays is checked anew."""
+def _range_check(blk, names) -> bool:
+    """_fits_int16 of the block's `names` slabs, the store's table
+    ("range_check", names) keyed on the slabs: every chunk and query of
+    a store shares them, and a block whose slabs are other arrays is
+    checked anew."""
     arrays = tuple(getattr(blk, n) for n in names)
-    lay = getattr(blk, "_dense_layout", None)
-    if lay is None:
-        return _fits_int16(arrays)
-    hit = lay.get(key)
-    if hit is not None and all(a is b for a, b in zip(hit[0], arrays)):
-        return hit[1]
-    with profile.rebuild("range_check"):
-        ok = _fits_int16(arrays)
-    lay[key] = (arrays, ok)
-    return ok
+    return blk.derived(("range_check", names), arrays,
+                       lambda: _fits_int16(arrays))
 
 
 def _narrow_inputs_ok(blk) -> bool:
     """True when every PL/AD/GT input value fits the int16 narrow range
     (remaps are permutations + sentinels, so the input range bounds the
     output range); pallas_combine._narrow_inputs_ok."""
-    return _range_check(blk, "_torch_narrow_ok", ("pl", "ad", "gt"))
+    return _range_check(blk, ("pl", "ad", "gt"))
 
 
 def _narrow_scalars_ok(blk) -> bool:
     """True when the GQ/DP/MIN_DP values fit int16 (masked
     passthroughs); pallas_combine._narrow_scalars_ok."""
-    return _range_check(blk, "_torch_narrow_scalars_ok",
-                        ("gq", "dp", "min_dp"))
+    return _range_check(blk, ("gq", "dp", "min_dp"))
 
 
 TERM_ROWS = 64          # the term table's allele rows (kTermRows)

@@ -75,33 +75,21 @@ def merged_cap(ploidy: int, block_elems: int = 0) -> int:
 
 
 def _eff_valid_store(store, name, n_cells):
-    """Store-cached effective validity for a field (a store-wide
-    property, computed once across genome-scale chunks)."""
-    cache = getattr(store, "_eff_valid_cache", None)
-    if cache is None:
-        cache = store._eff_valid_cache = {}
-    ev = cache.get(name)
-    if ev is None:
-        from ..query.block_fields import effective_valid
-        with profile.rebuild("eff_valid"):
-            ev = effective_valid(store.fields.get(name), n_cells)
-        cache[name] = ev
-    return ev
+    """A field's effective validity, the store's table `eff_valid` (a
+    store-wide property, computed once across genome-scale chunks)."""
+    from ..query.block_fields import effective_valid
+    return store.tables.get(
+        ("eff_valid", name), (),
+        lambda: effective_valid(store.fields.get(name), n_cells))
 
 
 def _string_codes_cached(store, name, fd):
     """Per-cell int code for a str column + the unique strings, fully
-    vectorized (group cells by length, np.unique over byte rows) and
-    cached on the store (codes are a store-wide property, reused across
-    genome-scale chunks).  Invalid cells get code -1."""
-    cache = getattr(store, "_str_code_cache", None)
-    if cache is None:
-        cache = store._str_code_cache = {}
-    got = cache.get(name)
-    if got is None:
-        with profile.rebuild("string_codes"):
-            got = cache[name] = _string_codes(fd)
-    return got
+    vectorized (group cells by length, np.unique over byte rows), the
+    store's table `string_codes` (codes are a store-wide property,
+    reused across genome-scale chunks).  Invalid cells get code -1."""
+    return store.tables.get(("string_codes", name), (),
+                            lambda: _string_codes(fd))
 
 
 def _string_codes(fd):
@@ -144,23 +132,20 @@ def record_starts(store: ColumnarStore, qc: QueryConfig,
     queries without building the blocks.
 
     The sorted event set is store-wide and query-independent (per row
-    subset), so it is cached on the store: repeated small-interval
-    queries — the Spark/GATK split pattern — cost two searchsorted
-    probes instead of a store-wide unique/sort each."""
+    subset), so it is the store's table `events`: repeated
+    small-interval queries — the Spark/GATK split pattern — cost two
+    searchsorted probes instead of a store-wide unique/sort each."""
     rows_key = tuple(sorted(qc.rows_to_query))
-    cache = getattr(store, "_events_cache", None)
-    if cache is None:
-        cache = store._events_cache = {}
-    events_all = cache.get(rows_key)
-    if events_all is None:
-        with profile.rebuild("events"):
-            sel = np.isin(store.row, list(rows_key)) if store.num_cells \
-                else np.zeros(0, dtype=bool)
-            col = store.col[sel]
-            end = store.eff_end[sel]
-            events_all = np.unique(np.concatenate([col, end + 1])) \
-                if len(col) else np.zeros(0, dtype=np.int64)
-        cache[rows_key] = events_all
+
+    def build():
+        sel = np.isin(store.row, list(rows_key)) if store.num_cells \
+            else np.zeros(0, dtype=bool)
+        col = store.col[sel]
+        end = store.eff_end[sel]
+        return np.unique(np.concatenate([col, end + 1])) \
+            if len(col) else np.zeros(0, dtype=np.int64)
+
+    events_all = store.tables.get("events", rows_key, build)
     lo, hi = interval
     i = np.searchsorted(events_all, lo, side="left")
     j = np.searchsorted(events_all, hi, side="right")
@@ -201,20 +186,20 @@ class BlockRecordMeta:
 
 def _block_ploidy(store: ColumnarStore, qc: QueryConfig,
                   ploidy: int) -> int:
-    """Cohort max ploidy from stored GT lengths (store-cached)."""
+    """Cohort max ploidy from stored GT lengths (the store's table
+    `gt_ploidy`)."""
     gt_fd0 = store.fields.get("GT")
     gt_info0 = qc.vid.get_field_info("GT")
     if gt_fd0 is not None and gt_info0 is not None and store.num_cells \
             and gt_fd0.valid.any():
-        pl_max = getattr(store, "_gt_ploidy_max_cache", None)
-        if pl_max is None:
+        def build():
             # distinct stored GT lengths are a handful; never loop cells
-            with profile.rebuild("gt_ploidy"):
-                glens0 = gt_fd0.lens()
-                uniq = np.unique(glens0[gt_fd0.valid & (glens0 > 0)])
-                pl_max = max((int(gt_info0.length.ploidy(int(g)))
-                              for g in uniq), default=ploidy)
-            store._gt_ploidy_max_cache = pl_max
+            glens0 = gt_fd0.lens()
+            uniq = np.unique(glens0[gt_fd0.valid & (glens0 > 0)])
+            return max((int(gt_info0.length.ploidy(int(g)))
+                        for g in uniq), default=ploidy)
+
+        pl_max = store.tables.get("gt_ploidy", (), build)
         if 0 < pl_max <= PLOIDY_CAP:
             ploidy = max(ploidy, pl_max)
     return ploidy
@@ -228,7 +213,7 @@ def dense_layout(store: ColumnarStore, qc: QueryConfig, plan,
                  gt_w: int, pad_cells_to: int) -> dict:
     """STORE-WIDE dense per-row field slabs [S, C] — built once per
     (store, row subset, queried-field set) and reused by every chunk of
-    every query (cached on the store).
+    every query (the store's table `dense_layout`).
 
     This is the key to device-resident serving: chunks and repeated
     interval queries index the SAME slab arrays, so (a) the per-chunk
@@ -246,13 +231,9 @@ def dense_layout(store: ColumnarStore, qc: QueryConfig, plan,
            qc.is_queried("DP_FORMAT"), qc.is_queried("MIN_DP"),
            plan.dp_info_queried, tuple(plan.med_fields),
            tuple(plan.imed_fields), tuple(plan.fsum_fields))
-    cache = getattr(store, "_dense_layout_cache", None)
-    if cache is not None and cache[0] == key:
-        return cache[1]
-    with profile.rebuild("dense_layout"):
-        lay = _dense_layout(store, qc, plan, gt_w, pad_cells_to)
-    store._dense_layout_cache = (key, lay)
-    return lay
+    return store.tables.get(
+        "dense_layout", key,
+        lambda: _dense_layout(store, qc, plan, gt_w, pad_cells_to))
 
 
 def _dense_layout(store, qc, plan, gt_w, pad_cells_to) -> dict:
@@ -331,7 +312,9 @@ def _dense_layout(store, qc, plan, gt_w, pad_cells_to) -> dict:
             return int(fd.values.shape[1])
         return max(fd.max_len(), 1)
 
-    lay = {"C": C, "col": col, "end": end, "cell_of": cell_of}
+    # sig_cache: the variant merges by allele pattern (_store_to_block)
+    lay = {"C": C, "col": col, "end": end, "cell_of": cell_of,
+           "sig_cache": {}}
     # input widths: store-global maxima, pow2-bucketed for shape reuse
     lay["pl"], lay["pl_len"] = ragged_matrix(
         "PL", _pow2(field_max_len("PL")))
@@ -430,11 +413,8 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
     ref_fd = store.fields["REF"]
     alt_fd = store.fields["ALT"]
     N = store.num_cells
-    am = getattr(store, "_allele_meta_cache", None)
-    if am is None:
-        with profile.rebuild("allele_meta"):
-            am = _allele_meta(ref_fd, alt_fd, N)
-        store._allele_meta_cache = am
+    am = store.tables.get("allele_meta", (),
+                          lambda: _allele_meta(ref_fd, alt_fd, N))
     (ref_len, alt_len, ref_ok, alt_ok, ref_bytes, alt_bytes, ref_first,
      alt_first, cell_refblock) = am
     # per-cell REF/ALT string codes (store-cached, vectorized): the
@@ -456,22 +436,18 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
     # broad_combined_gvcf.cc:912-1078): reduced-space alleles + the
     # reduced->input inverse LUT.  The "lowest deletion" choice (argmin
     # PL at the homozygous-deletion genotype) depends only on the cell,
-    # so it is precomputed ONCE per (row subset, queried PL/GT) and
-    # cached on the store — interval queries must not rescan all cells.
+    # so it is precomputed ONCE per (row subset, queried PL/GT), the
+    # store's table `del_state` — interval queries must not rescan all
+    # cells.
     pl_q = qc.is_queried("PL")
     gt_q = qc.is_queried("GT")
     gt_fd = store.fields.get("GT")
     pl_fd = store.fields.get("PL")
     gt_info = qc.vid.get_field_info("GT")
-    _del_key = (tuple(rows), pl_q, gt_q)
-    _del_cache = getattr(store, "_del_state_cache", None)
-    if _del_cache is None or _del_cache[0] != _del_key:
-        with profile.rebuild("del_state"):
-            _del_cache = (_del_key, _deletion_states(
-                cell_of, am, ref_fd, alt_fd, gt_fd, pl_fd, gt_info, pl_q,
-                gt_q))
-        store._del_state_cache = _del_cache
-    cell_hasdel, del_state = _del_cache[1]
+    cell_hasdel, del_state = store.tables.get(
+        "del_state", (tuple(rows), pl_q, gt_q),
+        lambda: _deletion_states(cell_of, am, ref_fd, alt_fd, gt_fd, pl_fd,
+                                 gt_info, pl_q, gt_q))
 
     # per-cell tables the grid reads, every store-wide rebuild before the
     # pass: GT's effective validity, the unrealizable queried fields and
@@ -631,7 +607,7 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
     # Deletion-rewritten records key by cell identity and fold in
     # del_state, which depends on the queried attribute set — those
     # entries stay per-query.
-    sig_cache: Dict[Tuple, Tuple] = lay.setdefault("_sig_cache", {})
+    sig_cache: Dict[Tuple, Tuple] = lay["sig_cache"]
     sig_cache_local: Dict[Tuple, Tuple] = {}
     rec_overflow: List[int] = []
     del_rw = np.zeros((B, S), dtype=bool)
@@ -820,10 +796,7 @@ def _store_to_block(store, qc, interval, max_merged, ploidy, return_meta,
                     rec_num_merged=rec_num_merged, rec_has_nr=rec_has_nr,
                     live=live, del_rw=del_rw,
                     gt_len_bs=gt_len_bs, ploidy=ploidy,
-                    gt_phase=plan.gt_phase)
-    # the slab tensors come from the store-wide layout cache: the
-    # combine paths key their device-resident copies on it
-    blk._dense_layout = lay
+                    gt_phase=plan.gt_phase, tables=store.tables)
     if not return_meta:
         return blk
     # --- gathered extras + effective-validity masks for the writer ---
@@ -1104,23 +1077,22 @@ def _merge_classes(var_cells, starting, ref_codes, alt_codes, get_ref,
 
 
 def _gt_bad(store, gt_fd, gt_info) -> np.ndarray:
-    """Per cell: a valid GT of a ploidy past PLOIDY_CAP (store-cached)."""
-    cell_gt_bad = getattr(store, "_gt_bad_cache", None)
-    if cell_gt_bad is None:
-        with profile.rebuild("gt_bad"):
-            glens = gt_fd.lens()
-            if gt_info is not None:
-                # map stored length -> ploidy via the few distinct
-                # lengths (searchsorted lookup; never a per-cell loop)
-                uniq = np.unique(glens)
-                pl_u = np.array([gt_info.length.ploidy(int(g)) if g
-                                 else 0 for g in uniq], dtype=np.int64)
-                pls = pl_u[np.searchsorted(uniq, glens)]
-            else:
-                pls = glens
-            cell_gt_bad = gt_fd.valid & (pls > PLOIDY_CAP)
-        store._gt_bad_cache = cell_gt_bad
-    return cell_gt_bad
+    """Per cell: a valid GT of a ploidy past PLOIDY_CAP (the store's
+    table `gt_bad`)."""
+    def build():
+        glens = gt_fd.lens()
+        if gt_info is not None:
+            # map stored length -> ploidy via the few distinct
+            # lengths (searchsorted lookup; never a per-cell loop)
+            uniq = np.unique(glens)
+            pl_u = np.array([gt_info.length.ploidy(int(g)) if g
+                             else 0 for g in uniq], dtype=np.int64)
+            pls = pl_u[np.searchsorted(uniq, glens)]
+        else:
+            pls = glens
+        return gt_fd.valid & (pls > PLOIDY_CAP)
+
+    return store.tables.get("gt_bad", (), build)
 
 
 def _med_any(lay, info_f, info_i, info_fs, S, C) -> Optional[np.ndarray]:

@@ -67,7 +67,8 @@ import torch.distributed as dist
 
 from ..core import formats, profile
 from ..ops import fused_combine as FC
-from ..ops.combine_step import block_to_tensors, combine_step, to_tensor
+from ..ops.combine_step import (block_to_tensors, combine_step,
+                                slab_arrays, to_tensor)
 from ..ops.store_block import dense_layout
 from .comm import PG_TIMEOUT_S, collective, gather_to_root
 
@@ -306,24 +307,15 @@ def _upload(t: torch.Tensor, device) -> torch.Tensor:
 def shard_block(mesh: Mesh, blk, device=None) -> tuple:
     """This rank's shard of `blk` (block_to_tensors order) on `device`
     (default: the mesh's).  The cell slabs' shard of a block from the
-    store path is cached on its store-wide layout, like the unsharded
+    store path is the store's table `shard_slabs`, like the unsharded
     upload, so a query uploads its slice of the slabs once."""
     device = torch.device(device if device is not None else mesh.device)
     B, S = np.asarray(blk.live).shape
     host = block_to_tensors(blk, "cpu")
-    lay = getattr(blk, "_dense_layout", None)
-    key = ("_torch_mesh_slabs", str(device), mesh.n_row, mesh.row)
-    slabs = None
-    if lay is not None:
-        hit = lay.get(key)
-        if hit is not None and all(a is b for a, b
-                                   in zip(hit[0], host[:N_SLABS])):
-            slabs = hit[1]
-    if slabs is None:
-        slabs = tuple(_upload(t, device) for t in _shard(
-            mesh, host[:N_SLABS], _LAYOUT[:N_SLABS], B, S))
-        if lay is not None:
-            lay[key] = (host[:N_SLABS], slabs)
+    slabs = blk.derived(
+        "shard_slabs", (str(device), mesh.n_row, mesh.row, slab_arrays(blk)),
+        lambda: tuple(_upload(t, device) for t in _shard(
+            mesh, host[:N_SLABS], _LAYOUT[:N_SLABS], B, S)))
     fill = 0 if blk.gt_len_bs is not None else blk.gt.shape[2]
     per_block = _shard(mesh, host[N_SLABS:], _layout(fill)[N_SLABS:], B, S)
     return slabs + tuple(_upload(t, device) for t in per_block)
@@ -406,8 +398,8 @@ def local_slabs(mesh: Mesh, store, qc, plan, gt_w: int,
     store_to_block builds and caches); a row > 0 rank builds no block
     and lays out its own samples alone.  A row's cell runs do not depend
     on the other rows, so both give the block's live cell indices the
-    same meaning.  The tensors are cached on the layout: a query uploads
-    them once."""
+    same meaning.  The tensors are the store's table `mesh_slabs`, keyed
+    on the layout's slabs: a query uploads them once."""
     lo, hi, per = _span(len(qc.rows_to_query), mesh.n_row, mesh.row)
     if mesh.row == 0:
         lay = dense_layout(store, qc, plan, gt_w, pad_cells_to)
@@ -417,14 +409,12 @@ def local_slabs(mesh: Mesh, store, qc, plan, gt_w: int,
         own.rows_to_query = list(qc.rows_to_query[lo:hi])
         lay = dense_layout(store, own, plan, gt_w, pad_cells_to)
         cut = (0, hi - lo, per)
-    key = ("_torch_mesh_slabs", str(mesh.device), mesh.n_row, mesh.row)
-    hit = lay.get(key)
-    if hit is None:
-        hit = lay[key] = tuple(
-            _upload(_cut(to_tensor(lay[k], "cpu"), s_ax, cut, fill),
-                    mesh.device)
-            for k, (s_ax, _, fill) in zip(SLAB_KEYS, _LAYOUT[:N_SLABS]))
-    return hit
+    slabs = tuple(lay[k] for k in SLAB_KEYS)
+    return store.tables.get(
+        "mesh_slabs", (str(mesh.device), mesh.n_row, mesh.row, slabs),
+        lambda: tuple(
+            _upload(_cut(to_tensor(a, "cpu"), s_ax, cut, fill), mesh.device)
+            for a, (s_ax, _, fill) in zip(slabs, _LAYOUT[:N_SLABS])))
 
 
 @dataclass(frozen=True)

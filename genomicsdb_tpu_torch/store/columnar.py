@@ -82,6 +82,41 @@ class FieldData:
         raise ValueError(self.kind)
 
 
+class Tables:
+    """The tables derived from one store, one entry per table, replaced
+    when its key changes.  A table is a name, or a (name, part) pair for
+    a table kept per part (a field: GT's and PL's entries stand side by
+    side).  The key is every input the table depends on besides the
+    store's cells; arrays in a key compare by identity, so a table
+    derived from a block's arrays is built anew for a block with other
+    arrays.  `held` maps table -> (key, value)."""
+
+    def __init__(self):
+        self.held: Dict = {}
+
+    def get(self, table, key, build):
+        """The table's value for `key`: the held one, or `build()`'s,
+        timed as the span `rebuild.<name>` and counted in
+        `store_rebuilds`."""
+        hit = self.held.get(table)
+        if hit is not None and _same(hit[0], key):
+            return hit[1]
+        with profile.rebuild(table if isinstance(table, str) else table[0]):
+            value = build()
+        self.held[table] = (key, value)
+        return value
+
+
+def _same(a, b) -> bool:
+    if a is b:          # first: a row subset's ints are the same objects
+        return True
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return False
+    return a == b
+
+
 @dataclass
 class ColumnarStore:
     """All cells of one column partition, sorted by (col, row)."""
@@ -93,6 +128,8 @@ class ColumnarStore:
     eff_end: np.ndarray = None         # int64 [n]
     fields: Dict[str, FieldData] = dc_field(default_factory=dict)
     attribute_order: List[str] = dc_field(default_factory=list)
+    tables: Tables = dc_field(default_factory=Tables, init=False,
+                              repr=False, compare=False)
 
     @property
     def num_cells(self) -> int:
@@ -107,24 +144,20 @@ class ColumnarStore:
         return np.arange(lo, hi)
 
     def row_layout(self):
-        """Cached row-major cell layout: (row_sorted, sorted_rows,
-        col_by_row, eff_by_row).  Within one row col ascends and
-        eff_end is non-decreasing (compute_eff_end truncates at the
-        next same-row begin), so interval membership per row is a
+        """The row-major cell layout, table `row_layout`: (row_sorted,
+        sorted_rows, col_by_row, eff_by_row).  Within one row col
+        ascends and eff_end is non-decreasing (compute_eff_end truncates
+        at the next same-row begin), so interval membership per row is a
         contiguous run findable by binary search.  Shared by
         store_to_block and the sequential scan's left sweep."""
-        c = getattr(self, "_row_sort_cache", None)
-        if c is None or len(c) != 4:
-            n = self.num_cells
-            with profile.rebuild("row_layout"):
-                row_sorted = np.argsort(self.row, kind="stable") if n \
-                    else np.zeros(0, dtype=np.int64)
-                sorted_rows = self.row[row_sorted] if n else row_sorted
-                col_by_row = self.col[row_sorted] if n else row_sorted
-                eff_by_row = self.eff_end[row_sorted] if n else row_sorted
-            c = self._row_sort_cache = (row_sorted, sorted_rows,
-                                        col_by_row, eff_by_row)
-        return c
+        return self.tables.get("row_layout", (), self._row_layout)
+
+    def _row_layout(self):
+        if not self.num_cells:
+            return (np.zeros(0, dtype=np.int64),) * 4
+        row_sorted = np.argsort(self.row, kind="stable")
+        return (row_sorted, self.row[row_sorted], self.col[row_sorted],
+                self.eff_end[row_sorted])
 
     def cells_intersecting(self, column: int) -> np.ndarray:
         """Indices of cells live at `column` (col <= column <= eff_end),

@@ -19,7 +19,9 @@ from genomicsdb_tpu.ops import pallas_combine as PC
 from genomicsdb_tpu_torch.ops import combine_step as TC
 from genomicsdb_tpu_torch.ops import fused_combine as FC
 
+from genomicsdb_tpu_torch.core import profile
 from genomicsdb_tpu_torch.ops import cell_block as CB
+from genomicsdb_tpu_torch.store.columnar import Tables
 
 from test_torch_combine_step import compare_outputs, make_blocks
 
@@ -244,21 +246,23 @@ def test_int16_overflow_takes_the_wide_kernel():
 
 
 def test_range_check_cache_follows_the_slabs():
-    """The checks are cached on the store-wide layout under the port's
-    own keys, together with the slabs they read: the JAX package's
-    entries are neither read nor written, and a block whose slabs are
-    other arrays is checked anew."""
+    """The checks are kept in the block's store tables, a table each,
+    keyed on the slabs they read: a held answer is read again, not
+    recomputed, and a block whose slabs are other arrays is checked
+    anew."""
     blk = CB.synthesize_cohort(4, 40, 3000, seed=7)
-    blk._dense_layout = {"_narrow_ok": False, "_narrow_scalars_ok": False}
+    blk.tables = Tables()
     assert FC._narrow_inputs_ok(blk) and FC._narrow_scalars_ok(blk)
-    lay = blk._dense_layout
-    assert lay["_torch_narrow_ok"][1] is True
-    assert lay["_torch_narrow_scalars_ok"][1] is True
-    assert lay["_narrow_ok"] is False
+    held = blk.tables.held
+    assert held[("range_check", ("pl", "ad", "gt"))][1] is True
+    assert held[("range_check", ("gq", "dp", "min_dp"))][1] is True
+    rebuilds = profile.COUNTS.store_rebuilds
+    assert FC._narrow_inputs_ok(blk) and FC._narrow_scalars_ok(blk)
+    assert profile.COUNTS.store_rebuilds == rebuilds
     blk.ad = blk.ad.copy()
     blk.ad[1, 1, 0] = -40_000
     assert not FC._narrow_inputs_ok(blk)
-    assert lay["_torch_narrow_ok"][1] is False
+    assert held[("range_check", ("pl", "ad", "gt"))][1] is False
     blk.dp = blk.dp.copy()
     blk.dp[0, 3] = 32_001
     assert not FC._narrow_scalars_ok(blk)

@@ -220,8 +220,9 @@ def test_a_kept_open_store_keeps_its_store_wide_tables(cohorts,
             assert profile.COUNTS.store_rebuilds == rebuilds
         texts.append("".join(ln + "\n" for ln in lines))
         assert texts[-1] == _run(gdb_query.main, ["-j", query] + BLOCK)
-    assert len(store._row_sort_cache[0]) == store.num_cells
-    assert store._dense_layout_cache is not None
+    held = store.tables.held
+    assert len(held["row_layout"][1][0]) == store.num_cells
+    assert held["dense_layout"][1] is not None
 
 
 def _hand_store():

@@ -434,3 +434,55 @@ def test_gdb_query_mesh_failures(cohort, monkeypatch):
     with pytest.raises(RuntimeError, match="not available"):
         gdb_query.main(["-j", cohort.query, "--produce-Broad-GVCF",
                         "--device", "cuda", "--mesh", "1x1"])
+
+
+SLABS_WORKER = r"""
+import json, sys
+sys.path.insert(0, %(root)r)
+import torch
+from genomicsdb_tpu_torch.core.config import QueryParams
+from genomicsdb_tpu_torch.core.vid import VidMapper
+from genomicsdb_tpu_torch.ops.store_block import store_to_block
+from genomicsdb_tpu_torch.parallel import sharded as TS
+from genomicsdb_tpu_torch.query import driver
+from genomicsdb_tpu_torch.query.block_fields import build_block_plan
+from genomicsdb_tpu_torch.store import workspace as ws
+workspace, array, vid, callsets, query = sys.argv[1:6]
+mesh = TS.make_mesh(1, 1, "cpu")
+
+
+def opened():
+    qc = driver.make_query_config(QueryParams.from_file(query, 0),
+                                  VidMapper.from_files(vid, callsets))
+    return ws.open_array(workspace, array), qc, build_block_plan(qc, qc.vid)
+
+
+store, qc, plan = opened()
+blk = store_to_block(store, qc)
+gt_w = blk.gt.shape[2]
+TS.shard_block(mesh, blk)
+got = TS.local_slabs(mesh, store, qc, plan, gt_w, 1)
+store, qc, plan = opened()
+alone = TS.local_slabs(mesh, store, qc, plan, gt_w, 1)
+same = [isinstance(a, torch.Tensor) and a.shape == b.shape
+        and a.numpy().tobytes() == b.numpy().tobytes()
+        for a, b in zip(got, alone)]
+print(json.dumps({"got": len(got), "alone": len(alone), "same": same}))
+del mesh
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_local_slabs_after_shard_block_on_one_store(tmp_path):
+    """On one store, shard_block of a block from the store path and then
+    local_slabs (a gloo world of one): local_slabs returns the 12 slab
+    tensors it returns alone, not shard_block's tables."""
+    c = write_cohort(str(tmp_path / "cohort"), 8, 60, seed=8)
+    vcf2gdb.main([c.loader])
+    script = tmp_path / "slabs.py"
+    script.write_text(SLABS_WORKER % {"root": ROOT})
+    out, = run_ranks(script, [c.workspace, c.array, c.vid, c.callsets,
+                              c.query], 1)
+    got = json.loads(out.strip().splitlines()[-1])
+    assert got["got"] == got["alone"] == TS.N_SLABS
+    assert all(got["same"])
