@@ -36,7 +36,8 @@ Below the combine is the device->host fetch pack (the JAX module's
 `PACK_SPECS` ... `host_identity_outputs`): the big outputs are narrowed
 to int16 / int8 on the device and fetched, with the small full outputs,
 as one contiguous byte blob, optionally holding only the variant rows;
-the host widens them and rebuilds the ref-block rows itself.
+the host widens them and rebuilds the ref-block rows itself, each
+record at its own width (`RecordStrided`).
 """
 
 from __future__ import annotations
@@ -635,14 +636,22 @@ def _fetch_blob_tree(out: Dict[str, torch.Tensor], packed: Dict):
 
 def fetch_outputs(out: Dict[str, torch.Tensor],
                   packed: Optional[Dict] = None) -> Dict[str, np.ndarray]:
-    """Host arrays of a combine-step output dict.  With `packed` (from
-    pack_outputs), narrow tensors come from the blob and are widened on
-    the host; an int32 original is fetched only if its values
-    overflowed.  Every fetch (this one, fetch_outputs_split) adds the
-    bytes it copies to the host to `fetch_outputs.fetched_bytes`.
-    Timed as the span `device.fetch`."""
+    """Host arrays of a combine-step output dict, dense.  With `packed`
+    (from pack_outputs), narrow tensors come from the blob and are
+    widened on the host (the span `device.fetch.fill`); an int32
+    original is fetched only if its values overflowed.  Every fetch
+    (this one, fetch_outputs_split) adds the bytes it copies to the host
+    to `fetch_outputs.fetched_bytes`, and the bytes of the host outputs
+    it returns to the counter `host_output_bytes`.  Timed as the span
+    `device.fetch`."""
     with profile.span("device.fetch"):
-        return _fetch_outputs(out, packed)
+        return _counted(_fetch_outputs(out, packed))
+
+
+def _counted(dev: Dict) -> Dict:
+    profile.count("host_output_bytes",
+                  sum(v.nbytes for k, v in dev.items() if k != "live"))
+    return dev
 
 
 def _fetch_outputs(out, packed):
@@ -650,79 +659,186 @@ def _fetch_outputs(out, packed):
         return {k: _fetch_whole(v) for k, v in out.items()}
     got, narrow = _fetch_blob_tree(out, packed)
     dev: Dict[str, np.ndarray] = {}
-    for k, v in got.items():
-        if k in narrow:
-            _, miss, eov, _, _ = PACK_SPECS[k]
-            dev[k] = _widen(v, miss, eov)
-        elif k in PACK_SPECS and v.dtype == np.int16:
-            # kernel-narrowed tensor fetched whole: BCF16 sentinels
-            dev[k] = _widen(v, INT16_MISSING, INT16_VECTOR_END)
-        else:
-            dev[k] = v
+    with profile.span("device.fetch.fill"):
+        for k, v in got.items():
+            if k in narrow:
+                _, miss, eov, _, _ = PACK_SPECS[k]
+                dev[k] = _widen(v, miss, eov)
+            elif k in PACK_SPECS and v.dtype == np.int16:
+                # kernel-narrowed tensor fetched whole: BCF16 sentinels
+                dev[k] = _widen(v, INT16_MISSING, INT16_VECTOR_END)
+            else:
+                dev[k] = v
     return dev
 
 
 fetch_outputs.fetched_bytes = 0
 
 
+class RecordStrided:
+    """A [B, S, ...] int32 output kept at each record's own width:
+    element (b, s, j), j < w[b], is vals[off[b] + s * w[b] + j].  The
+    split fetch's PL / AD / GT take this form, so a block's reference
+    rows hold the few slots their identity remap fills, not the widest
+    record's.  A dense [B, S, W] array is the uniform case (`of`:
+    off[b] = b * S * W, w[b] = W, its values not copied); the renderer
+    reads both through it."""
+
+    __slots__ = ("vals", "off", "w", "S")
+
+    def __init__(self, vals: np.ndarray, off: np.ndarray, w: np.ndarray,
+                 S: int):
+        self.vals, self.off, self.w, self.S = vals, off, w, S
+
+    @classmethod
+    def alloc(cls, w: np.ndarray, S: int) -> "RecordStrided":
+        """Unfilled int32 values for records of widths `w` over S
+        samples."""
+        w = np.ascontiguousarray(w, dtype=np.int64)
+        off = np.zeros(len(w), np.int64)
+        np.cumsum(S * w[:-1], out=off[1:])
+        return cls(np.empty(int(S * w.sum()), np.int32), off, w, S)
+
+    @classmethod
+    def of(cls, a) -> "RecordStrided":
+        """`a` itself, or a dense [B, S(, W)] array as the uniform case
+        (viewed where it is C-contiguous, as every fetched output is)."""
+        if isinstance(a, cls):
+            return a
+        a = np.ascontiguousarray(a)
+        if a.ndim == 2:
+            a = a[:, :, None]
+        B, S, W = a.shape
+        return cls(a.reshape(-1), np.arange(B, dtype=np.int64) * (S * W),
+                   np.full(B, W, np.int64), S)
+
+    @property
+    def nbytes(self) -> int:
+        return self.vals.nbytes + self.off.nbytes + self.w.nbytes
+
+    def row(self, b: int) -> np.ndarray:
+        """Record b's [S, w[b]] values, viewed."""
+        o, w = int(self.off[b]), int(self.w[b])
+        return self.vals[o:o + self.S * w].reshape(self.S, w)
+
+    def put(self, rows: np.ndarray, dense: np.ndarray) -> None:
+        """Write dense[i] ([n, S, >= w]) into record rows[i], for rows
+        that share one width."""
+        if not len(rows):
+            return
+        w = int(self.w[rows[0]])
+        idx = self.off[rows][:, None] + np.arange(self.S * w)[None]
+        self.vals[idx] = np.ascontiguousarray(
+            dense[:, :, :w]).reshape(len(rows), -1)
+
+    def take(self, rows: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """The values (r, s, j < min(lens[r, s], w)) of records `rows`,
+        flat in that order."""
+        out = []
+        for r, b in enumerate(rows):
+            v = self.row(int(b))
+            out.append(v[np.arange(v.shape[1])[None] < lens[r][:, None]])
+        return np.concatenate(out) if out else np.zeros(0, np.int32)
+
+
 def fetch_outputs_split(out: Dict[str, torch.Tensor], packed: Dict,
                         var_rows: np.ndarray, ref_rows: np.ndarray,
-                        ident) -> Dict[str, np.ndarray]:
-    """Full-size host outputs from a variant-row-only fetch
+                        live_rows: np.ndarray, ploidy: int,
+                        ident) -> Dict:
+    """Host outputs from a variant-row-only fetch
     (pack_outputs(rows=var_rows)) plus host-rebuilt ref-block rows.
-    `ident` is either the host_identity_outputs dict, or a callable
-    `fill(full_arrays) -> bool` that writes the ref rows straight into
-    the preallocated full arrays (the native scatter path), and returns
-    the dict when called with None.  Reductions and int32 overflow
-    fallbacks come back full.  Timed as the span `device.fetch`."""
+    The narrowed [B, S, W] outputs (PL / AD / GT) come back
+    `RecordStrided`: a variant row at the blob's width, a reference row
+    at `ploidy + 1` PL and 2 AD slots, a row with no live cell (`live_rows` false:
+    bucket padding, rows never rendered) at width 0.  The narrowed
+    [B, S] outputs come back dense, MISSING outside the rows filled.
+    `ident(dest, rows)` writes reference rows `rows` into `dest` (the
+    narrowed IDENT_KEYS outputs: `identity_fill`).  Reductions and
+    int32 overflow fallbacks come back dense and whole.  Timed as the
+    span `device.fetch`; the host outputs' allocation and fills as its
+    child `device.fetch.fill`; their bytes counted in
+    `host_output_bytes`."""
     with profile.span("device.fetch"):
-        return _fetch_outputs_split(out, packed, var_rows, ref_rows, ident)
+        return _counted(_fetch_outputs_split(
+            out, packed, var_rows, ref_rows, live_rows, ploidy, ident))
 
 
-def _fetch_outputs_split(out, packed, var_rows, ref_rows, ident):
+def _fetch_outputs_split(out, packed, var_rows, ref_rows, live_rows,
+                         ploidy, ident):
     from ..runtime import native_loader
     got, narrow = _fetch_blob_tree(
         {k: v for k, v in out.items() if k != "live"}, packed)
-    B = out["live"].shape[0]
-    dev: Dict[str, np.ndarray] = {}
-    ident_full: Dict[str, np.ndarray] = {}
-    for k, v in got.items():
-        if k in narrow:
-            _, miss, eov, _, _ = PACK_SPECS[k]
-            if v.ndim == 2:
-                # [B, S] presence columns: rows outside the scatter
-                # (no live cell / bucket padding) must read MISSING
-                full = np.full((B,) + v.shape[1:], INT_MISSING,
-                               dtype=np.int32)
+    with profile.span("device.fetch.fill"):
+        B = len(live_rows)
+        ref_rows = ref_rows[live_rows[ref_rows]]
+        var_kept = live_rows[var_rows]
+        # a reference row's identity remap fills genotypes g <= ploidy
+        # and alleles m < 2 (host_identity_outputs), and every GT slot
+        ref_w = {"pl": ploidy + 1, "ad": 2, "gt": np.inf}
+        dev: Dict = {}
+        ident_dest: Dict = {}
+        for k, v in got.items():
+            if k in narrow:
+                _, miss, eov, _, _ = PACK_SPECS[k]
+                if v.ndim == 2:
+                    # [B, S] presence columns: rows outside the scatter
+                    # (no live cell / bucket padding) must read MISSING
+                    full = np.full((B,) + v.shape[1:], INT_MISSING,
+                                   dtype=np.int32)
+                    dest_off = var_rows * v.shape[1]
+                    flat = full.reshape(-1)
+                else:
+                    w = np.zeros(B, np.int64)
+                    w[var_rows[var_kept]] = v.shape[2]
+                    w[ref_rows] = min(ref_w[k], v.shape[2])
+                    full = RecordStrided.alloc(w, v.shape[1])
+                    dest_off = np.where(var_kept, full.off[var_rows], -1)
+                    flat = full.vals
+                # widen + sentinel remap + scatter in one threaded
+                # native pass (numpy otherwise)
+                if native_loader.widen_scatter(v, dest_off, miss, eov,
+                                               flat) is None:
+                    if v.ndim == 2:
+                        full[var_rows] = _widen(v, miss, eov)
+                    else:
+                        full.put(var_rows[var_kept],
+                                 _widen(v[var_kept], miss, eov))
+                if k in IDENT_KEYS:
+                    ident_dest[k] = full
+                dev[k] = full
+            elif k in PACK_SPECS and v.dtype == np.int16:
+                # kernel-narrowed tensor fetched whole (not row-sliced)
+                dev[k] = _widen(v, INT16_MISSING, INT16_VECTOR_END)
             else:
-                # [B, S, W] value tensors are only read at live cells
-                # of emitted rows, all covered by the scatter
-                full = np.empty((B,) + v.shape[1:], dtype=np.int32)
-            # widen + sentinel remap + scatter in one threaded native
-            # pass (numpy otherwise)
-            if native_loader.widen_scatter(v, var_rows, miss, eov,
-                                           full) is None:
-                full[var_rows] = _widen(v, miss, eov)
-            if k in IDENT_KEYS:
-                ident_full[k] = full
-            dev[k] = full
-        elif k in PACK_SPECS and v.dtype == np.int16:
-            # kernel-narrowed tensor fetched whole (not row-sliced)
-            dev[k] = _widen(v, INT16_MISSING, INT16_VECTOR_END)
-        else:
-            dev[k] = v
-    if ident_full:
-        filled = False
-        ident_dict = ident if isinstance(ident, dict) else None
-        if callable(ident) and set(ident_full) == set(IDENT_KEYS):
-            filled = bool(ident(ident_full))
-        if not filled:
-            if ident_dict is None:
-                ident_dict = ident(None) if callable(ident) else {}
-            for k, full in ident_full.items():
-                if k in ident_dict:
-                    full[ref_rows] = ident_dict[k]
+                dev[k] = v
+        if ident_dest and len(ref_rows):
+            ident(ident_dest, ref_rows)
     return dev
+
+
+def identity_fill(blk, dest: Dict, rows: np.ndarray, gt_phase: bool,
+                  mixed_ploidy: bool) -> None:
+    """Write host_identity_outputs of reference rows `rows` into their
+    records of `dest` (some of IDENT_KEYS: PL / AD / GT record-strided
+    at the widths they hold there, the rest dense [B, S]); in one
+    native pass when `dest` holds every key, else through the dict
+    form."""
+    from ..runtime import native_loader
+    live = np.asarray(blk.live)[rows]
+    gtl_r = np.asarray(blk.gt_len_bs)[rows] if mixed_ploidy else None
+    if set(dest) == set(IDENT_KEYS) and native_loader.identity_outputs(
+            live, blk.pl, blk.pl_len, blk.ad, blk.ad_len, blk.gt, blk.gq,
+            blk.dp, blk.min_dp, gtl_r, None, blk.ploidy, gt_phase,
+            mixed_ploidy, out=dest, dest_rows=rows) is not None:
+        return
+    widths = tuple(int(dest[k].w[rows].max()) if k in dest else 1
+                   for k in ("pl", "ad", "gt"))
+    got = host_identity_outputs(blk, rows, widths, gt_phase, mixed_ploidy)
+    for k, v in dest.items():
+        if isinstance(v, RecordStrided):
+            v.put(rows, got[k])
+        else:
+            v[rows] = got[k]
 
 
 def host_identity_outputs(blk, rows: np.ndarray,

@@ -19,7 +19,9 @@ kernel writes PL/AD/GT (and GQ/DP/MIN_DP) as int16, the device packs
 the variant rows and the small outputs into one blob whose copy to
 pinned host memory starts before the previous chunk renders, and the
 host widens it and rebuilds the ref-block rows (the native
-`identity_outputs`).  With `pack` off (the default on the CPU device)
+`identity_outputs`), each record at its own width
+(`combine_step.RecordStrided`, which the renderer reads dense arrays
+through too).  With `pack` off (the default on the CPU device)
 every output is fetched whole with `.cpu().numpy()`.  The mesh branch
 (`mesh=`, `gdb_query --mesh`) renders one pos span of each chunk per
 pos group: the group's row-0 rank alone builds the span's block and
@@ -48,9 +50,9 @@ from ..core import formats, profile
 from ..core import known_fields as kf
 from ..core.config import INT64_MAX, QueryConfig
 from ..core.vid import VidMapper
-from ..ops.combine_step import (fetch_outputs, fetch_outputs_split,
-                                host_identity_outputs, pack_outputs,
-                                per_block_arrays)
+from ..ops.combine_step import (RecordStrided, fetch_outputs,
+                                fetch_outputs_split, identity_fill,
+                                pack_outputs, per_block_arrays)
 from ..ops.fused_combine import combine_block, kernel_takes_shape
 from ..ops.store_block import _block_ploidy, store_to_block
 from ..runtime import native_loader
@@ -236,31 +238,14 @@ def _device_section(blk, meta, device, pack, max_merged, ploidy, gt_phase,
     live = np.asarray(blk.live)
     yield
     if split is not None:
+        # only rows with any live cell are filled: records without one
+        # (bucket padding included) are never rendered
         var_rows, ref_rows = split
-        widths = (out["pl"].shape[-1], out["ad"].shape[-1],
-                  out["gt"].shape[-1])
-        # rebuild only rows with any live cell: records without one
-        # (bucket padding included) are never rendered, and the 2-D
-        # presence columns are MISSING-filled in fetch_outputs_split
-        ref_emitted = ref_rows[(live[ref_rows] >= 0).any(axis=1)]
-        gtl_r = np.asarray(blk.gt_len_bs)[ref_emitted] \
-            if mixed_ploidy else None
-
-        def ident(full):
-            """full given: native scatter of the ref-row identity
-            passthrough straight into the full-size arrays; None: the
-            dict form (host_identity_outputs)."""
-            if full is None:
-                return host_identity_outputs(blk, ref_emitted, widths,
-                                             gt_phase, mixed_ploidy)
-            return native_loader.identity_outputs(
-                live[ref_emitted], blk.pl, blk.pl_len, blk.ad,
-                blk.ad_len, blk.gt, blk.gq, blk.dp, blk.min_dp, gtl_r,
-                widths, blk.ploidy, gt_phase, mixed_ploidy,
-                out=full, dest_rows=ref_emitted) is not None
-
-        dev = fetch_outputs_split(out, packed, var_rows, ref_emitted,
-                                  ident)
+        dev = fetch_outputs_split(
+            out, packed, var_rows, ref_rows, (live >= 0).any(axis=1),
+            blk.ploidy,
+            lambda dest, rows: identity_fill(blk, dest, rows, gt_phase,
+                                             mixed_ploidy))
     else:
         dev = fetch_outputs({k: v for k, v in out.items() if k != "live"},
                             packed)
@@ -1289,14 +1274,6 @@ class _SampleRenderer:
         return _py_to_col([out])
 
     def _scalar_col(self, arr, bs, mask):
-        if self.native:
-            # masked cells render '.': length-0 entries and MISSING
-            # values produce identical text, so the mask becomes the
-            # length vector and no gathered copy is made
-            r = native_loader.render_strided_lists(
-                np.asarray(arr), np.asarray(bs), mask.astype(np.int64))
-            if r is not None:
-                return r
         vals = np.where(mask, arr[bs], INT_MISSING).astype(np.int32)
         lens = np.ones(mask.shape, dtype=np.int64)
         return self._ints_col(vals.ravel(), lens)
@@ -1304,7 +1281,8 @@ class _SampleRenderer:
     def _column_desc(self, spec, bs, mask, mask64=None):
         """render_group_fused descriptor for one FORMAT column —
         ("ints", vals, lens, delim) / ("dots", lens, delim) pass the
-        raw tensors straight to the one-pass native renderer;
+        raw outputs (PL / AD / GT record-strided or dense) straight to
+        the one-pass native renderer;
         python-loop columns (GT text, char/float extras, raw-PL mixed
         cells) pre-render to a ("blob", bytes, offsets) span."""
         nm = spec.name
@@ -1322,8 +1300,8 @@ class _SampleRenderer:
                 ov_bs = {k[0] for k in ov}
                 if any(int(b) in ov_bs for b in bs):
                     return ("blob",) + self._column(spec, bs, mask)
-            return ("gt", np.asarray(self.dev["gt"]),
-                    mask.astype(np.int32), produce, phase)
+            return ("gt", self.dev["gt"], mask.astype(np.int32), produce,
+                    phase)
         if mask64 is None:
             mask64 = mask.astype(np.int32)
         if nm == "GQ":
@@ -1334,7 +1312,7 @@ class _SampleRenderer:
         if nm == "AD":
             nmm = self.blk.rec_num_merged[bs]
             valid = mask & self.meta.valid_core["AD"][bs]
-            return ("ints", np.asarray(self.dev["ad"]),
+            return ("ints", self.dev["ad"],
                     np.where(valid, nmm[:, None], 0), b",")
         if nm == "PL":
             nmm = self.blk.rec_num_merged[bs]
@@ -1350,7 +1328,7 @@ class _SampleRenderer:
                              & (self.ploidy_bs[bs] == 0) & valid)
                 if raw_cells.any():
                     return ("blob",) + self._column(spec, bs, mask)
-            return ("ints", np.asarray(self.dev["pl"]), lens_out, b",")
+            return ("ints", self.dev["pl"], lens_out, b",")
         ex = self.meta.extras[nm]
         if spec.kind == "float" and ex.vals is not None:
             valid = mask & ex.valid[bs]
@@ -1399,7 +1377,7 @@ class _SampleRenderer:
                 return _py_to_col([rows])
             # phased and/or produce_GT: encode_GT_vector 4-way matrix
             # (broad_combined_gvcf.cc:54-138) from the remapped GT
-            gtd = self.dev["gt"]
+            gtd = RecordStrided.of(self.dev["gt"])
             ov = self.meta.gt_override or {}
             rows = []
             for r, b in enumerate(bs):
@@ -1409,7 +1387,7 @@ class _SampleRenderer:
                         continue
                     vec = ov.get((int(b), s))
                     if vec is None:
-                        vec = gtd[b, s]
+                        vec = gtd.row(int(b))[s]
                     rows.append(_gt_text(vec, produce, phase))
             return _py_to_col([rows])
         if nm == "GQ":
@@ -1419,16 +1397,10 @@ class _SampleRenderer:
         if nm == "AD":
             nmm = self.blk.rec_num_merged[bs]
             valid = mask & self.meta.valid_core["AD"][bs]
-            ad = self.dev["ad"]
             lens = np.where(valid, nmm[:, None], 0)
-            if self.native:
-                r = native_loader.render_strided_lists(
-                    ad, np.asarray(bs), lens)
-                if r is not None:
-                    return r
-            sel = (np.arange(ad.shape[2]) < nmm[:, None, None]) \
-                & valid[:, :, None]
-            return self._ragged_ints(ad[bs][sel], lens, mask)
+            return self._ragged_ints(
+                RecordStrided.of(self.dev["ad"]).take(bs, lens), lens,
+                mask)
         if nm == "PL":
             nmm = self.blk.rec_num_merged[bs]
             if self.mixed:
@@ -1439,7 +1411,7 @@ class _SampleRenderer:
             else:
                 ng = _num_genotypes(nmm, self.ploidy)[:, None]
             valid = mask & self.meta.valid_core["PL"][bs]
-            pl = self.dev["pl"]
+            pl = RecordStrided.of(self.dev["pl"])
             lens_out = np.where(valid, ng, 0)
             if self.mixed:
                 # ploidy-0 calls (no GT) inside ref-block-only records:
@@ -1451,14 +1423,8 @@ class _SampleRenderer:
                 if raw_cells.any():
                     return self._pl_with_raw(pl, bs, lens_out,
                                              raw_cells, mask)
-            if self.native:
-                r = native_loader.render_strided_lists(
-                    pl, np.asarray(bs), lens_out)
-                if r is not None:
-                    return r
-            sel = (np.arange(pl.shape[2]) < ng[:, :, None]) \
-                & valid[:, :, None]
-            return self._ragged_ints(pl[bs][sel], lens_out, mask)
+            return self._ragged_ints(pl.take(bs, lens_out), lens_out,
+                                     mask)
         # ---- extras ----
         ex = self.meta.extras[nm]
         if spec.kind == "char":
@@ -1469,11 +1435,6 @@ class _SampleRenderer:
         valid = mask & ex.valid[bs]
         if spec.wkind in ("scalar", "fixed"):
             w = spec.width
-            if self.native:
-                r = native_loader.render_strided_lists(
-                    ex.vals, np.asarray(bs), np.where(valid, w, 0))
-                if r is not None:
-                    return r
             sel_vals = ex.vals[bs][valid]
             return self._ragged_ints(sel_vals.reshape(-1),
                                      np.where(valid, w, 0), mask)
@@ -1481,21 +1442,11 @@ class _SampleRenderer:
             off = 1 if spec.wkind == "A" else 0
             wrec = self.blk.rec_num_merged[bs] - off
             lens = np.where(valid, wrec[:, None], 0)
-            if self.native:
-                r = native_loader.render_strided_lists(
-                    ex.vals, np.asarray(bs), lens)
-                if r is not None:
-                    return r
             sel = (np.arange(ex.vals.shape[2]) < wrec[:, None, None]) \
                 & valid[:, :, None]
             return self._ragged_ints(ex.vals[bs][sel], lens, mask)
         # VAR: per-sample own length
         lens = np.where(valid, ex.lens[bs], 0)
-        if self.native:
-            r = native_loader.render_strided_lists(
-                ex.vals, np.asarray(bs), lens)
-            if r is not None:
-                return r
         sel = np.arange(ex.vals.shape[2])[None, None, :] \
             < lens[:, :, None]
         return self._ragged_ints(ex.vals[bs][sel], lens, mask)
@@ -1517,15 +1468,15 @@ class _SampleRenderer:
             lens_out[r, s] = len(seg)
         flat = np.empty(int(lens_out.sum()), dtype=np.int32)
         pos = 0
-        plb = pl[bs]
         for r in range(R):
+            plr = pl.row(int(bs[r]))
             for s in range(S):
                 n = int(lens_out[r, s])
                 if not n:
                     continue
                 seg = segs.get((r, s))
                 flat[pos:pos + n] = seg if seg is not None \
-                    else plb[r, s, :n]
+                    else plr[s, :n]
                 pos += n
         return self._ragged_ints(flat, lens_out, mask)
 

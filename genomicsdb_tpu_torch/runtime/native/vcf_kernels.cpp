@@ -1024,7 +1024,10 @@ extern "C" int64_t gdb_assemble_lines(
 // degenerates to a masked passthrough (reference semantics:
 // broad_combined_gvcf.cc handle_* on pure reference blocks).  The numpy
 // form costs ~1 s per 20k-record x 100-sample block; this loop is the
-// same arithmetic at memory speed, threaded over records.
+// same arithmetic at memory speed, threaded over records.  PL / AD / GT
+// are written record-strided (ops/combine_step.RecordStrided), each
+// record at the width the caller gave it; the [B, S] outputs at the
+// record's row `dest[b]`.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -1033,7 +1036,6 @@ constexpr int32_t INT_VECTOR_END = INT32_MIN + 1;
 
 struct IdentArgs {
   const int32_t* live;   // [B, S]
-  const int64_t* dest;   // output row of record b (nullptr: b)
   int64_t B, S, C;
   const int32_t* pl; int64_t wpl;    // [S, C, wpl]
   const int32_t* pl_len;             // [S, C]
@@ -1044,18 +1046,22 @@ struct IdentArgs {
   const int32_t* dp;
   const int32_t* min_dp;
   const int32_t* gt_len;             // [B, S] (mixed) or nullptr
-  int64_t g_out, m_out, p_out;
   int32_t ploidy, gt_phase, mixed;
-  int32_t* pl_o; int32_t* ad_o; int32_t* gt_o;
+  // record-strided PL / AD / GT outputs: record b's [S, w[b]] values
+  // start at element off[b]
+  int32_t* pl_o; const int64_t* pl_off; const int64_t* pl_w;
+  int32_t* ad_o; const int64_t* ad_off; const int64_t* ad_w;
+  int32_t* gt_o; const int64_t* gt_off; const int64_t* gt_w;
+  const int64_t* dest;   // record b's row of the [*, S] outputs
   int32_t* gq_o; int32_t* dp_o; int32_t* mdp_o;
 };
 
 void ident_rows(const IdentArgs& a, int64_t b0, int64_t b1) {
   for (int64_t b = b0; b < b1; ++b) {
-    const int64_t bo = a.dest ? a.dest[b] : b;
+    const int64_t gw = a.pl_w[b], mw = a.ad_w[b], pw = a.gt_w[b];
     for (int64_t s = 0; s < a.S; ++s) {
       const int64_t bs = b * a.S + s;
-      const int64_t bso = bo * a.S + s;
+      const int64_t bso = a.dest[b] * a.S + s;
       const int32_t k = a.live[bs];
       const bool ok = k >= 0;
       int64_t kk = k < 0 ? 0 : k;
@@ -1070,9 +1076,9 @@ void ident_rows(const IdentArgs& a, int64_t b0, int64_t b1) {
       }
       // PL: genotypes over [REF, NON_REF] at ploidy p are slots <= p,
       // gated by pl_len; mixed ploidy-0 calls read VECTOR_END
-      int32_t* plo = a.pl_o + bso * a.g_out;
+      int32_t* plo = a.pl_o + a.pl_off[b] + s * gw;
       const int32_t plen = ok ? a.pl_len[sc] : 0;
-      for (int64_t g = 0; g < a.g_out; ++g) {
+      for (int64_t g = 0; g < gw; ++g) {
         int32_t v = INT_MISSING;
         if (ok && g <= p_b && g < plen && g < a.wpl)
           v = a.pl[sc * a.wpl + g];
@@ -1080,17 +1086,17 @@ void ident_rows(const IdentArgs& a, int64_t b0, int64_t b1) {
         plo[g] = v;
       }
       // AD: slots m < num_merged (=2) gated by ad_len
-      int32_t* ado = a.ad_o + bso * a.m_out;
+      int32_t* ado = a.ad_o + a.ad_off[b] + s * mw;
       const int32_t alen = ok ? a.ad_len[sc] : 0;
-      for (int64_t m = 0; m < a.m_out; ++m) {
+      for (int64_t m = 0; m < mw; ++m) {
         int32_t v = INT_MISSING;
         if (ok && m < 2 && m < alen && m < a.wad)
           v = a.ad[sc * a.wad + m];
         ado[m] = v;
       }
       // GT: identity allele remap with NON_REF fallback (merged idx 1)
-      int32_t* gto = a.gt_o + bso * a.p_out;
-      for (int64_t p = 0; p < a.p_out; ++p) {
+      int32_t* gto = a.gt_o + a.gt_off[b] + s * pw;
+      for (int64_t p = 0; p < pw; ++p) {
         int32_t raw = (ok && p < a.wgt) ? a.gt[sc * a.wgt + p]
                                         : INT_MISSING;
         int32_t o;
@@ -1115,23 +1121,24 @@ void ident_rows(const IdentArgs& a, int64_t b0, int64_t b1) {
 }  // namespace
 
 extern "C" int gdb_identity_outputs(
-    const int32_t* live, const int64_t* dest_rows,
-    int64_t B, int64_t S, int64_t C,
+    const int32_t* live, int64_t B, int64_t S, int64_t C,
     const int32_t* pl, int64_t wpl, const int32_t* pl_len,
     const int32_t* ad, int64_t wad, const int32_t* ad_len,
     const int32_t* gt, int64_t wgt,
     const int32_t* gq, const int32_t* dp, const int32_t* min_dp,
     const int32_t* gt_len,
-    int64_t g_out, int64_t m_out, int64_t p_out,
     int32_t ploidy, int32_t gt_phase, int32_t mixed,
-    int32_t* pl_o, int32_t* ad_o, int32_t* gt_o,
+    int32_t* pl_o, const int64_t* pl_off, const int64_t* pl_w,
+    int32_t* ad_o, const int64_t* ad_off, const int64_t* ad_w,
+    int32_t* gt_o, const int64_t* gt_off, const int64_t* gt_w,
+    const int64_t* dest,
     int32_t* gq_o, int32_t* dp_o, int32_t* mdp_o) {
   if (B <= 0 || S <= 0 || C <= 0) return 0;
   if (mixed && gt_len == nullptr) return -1;
-  IdentArgs a{live, dest_rows, B, S, C, pl, wpl, pl_len, ad, wad,
-              ad_len, gt, wgt, gq, dp, min_dp, gt_len, g_out, m_out,
-              p_out, ploidy, gt_phase, mixed, pl_o, ad_o, gt_o,
-              gq_o, dp_o, mdp_o};
+  IdentArgs a{live, B, S, C, pl, wpl, pl_len, ad, wad, ad_len, gt, wgt,
+              gq, dp, min_dp, gt_len, ploidy, gt_phase, mixed,
+              pl_o, pl_off, pl_w, ad_o, ad_off, ad_w, gt_o, gt_off, gt_w,
+              dest, gq_o, dp_o, mdp_o};
   const int64_t cells = B * S;
   gdbpool::par_for(B, [&a](int64_t lo, int64_t hi) {
     ident_rows(a, lo, hi);
@@ -1140,72 +1147,20 @@ extern "C" int gdb_identity_outputs(
 }
 
 // ---------------------------------------------------------------------------
-// Strided ragged int renderer: the FORMAT-column hot path.  Renders
-// entry (r, s) as vals[rows[r], s, 0:lens[r*S+s]] joined by `delim`
-// ('.' when the length is 0; INT32_MIN renders '.').  Replaces the
-// numpy gather-then-boolean-mask pipeline (pl[bs][sel]) that copied
-// each [R, S, W] column twice before rendering.  Text semantics are
-// exactly gdb_render_int_lists'.
-// ---------------------------------------------------------------------------
-
-extern "C" int64_t gdb_render_strided_lists(
-    const int32_t* vals, int64_t S, int64_t W,
-    const int64_t* rows, int64_t R,
-    const int64_t* lens, char delim, char* out, int64_t out_cap,
-    int64_t* out_offsets) {
-  int64_t w = 0;
-  out_offsets[0] = 0;
-  char buf[16];
-  int64_t i = 0;
-  for (int64_t r = 0; r < R; ++r) {
-    const int64_t b = rows[r];
-    for (int64_t s = 0; s < S; ++s, ++i) {
-      int64_t n = lens[i];
-      if (n > W) n = W;
-      if (n <= 0) {
-        if (w + 1 > out_cap) return -1;
-        out[w++] = '.';
-        out_offsets[i + 1] = w;
-        continue;
-      }
-      const int32_t* src = vals + (b * S + s) * W;
-      for (int64_t j = 0; j < n; ++j) {
-        if (j) {
-          if (w + 1 > out_cap) return -1;
-          out[w++] = delim;
-        }
-        const int32_t v = src[j];
-        if (v == INT32_MIN) {
-          if (w + 1 > out_cap) return -1;
-          out[w++] = '.';
-          continue;
-        }
-        char* p = buf + sizeof(buf);
-        bool neg = v < 0;
-        uint32_t u = neg ? static_cast<uint32_t>(-(int64_t)v)
-                         : static_cast<uint32_t>(v);
-        do { *--p = '0' + (u % 10); u /= 10; } while (u);
-        if (neg) *--p = '-';
-        int64_t len = buf + sizeof(buf) - p;
-        if (w + len > out_cap) return -1;
-        std::memcpy(out + w, p, len);
-        w += len;
-      }
-      out_offsets[i + 1] = w;
-    }
-  }
-  return w;
-}
-
-// ---------------------------------------------------------------------------
 // Fused FORMAT-group renderer: emits each record's complete sample
 // columns ("a:b:c\ta:b:c...") in ONE pass from column descriptors,
 // replacing the render -> join_columns -> join_rows pipeline (three
 // full passes over the sample text).  Column kinds:
-//   0 = strided int lists: vals [B,S,W] + lens [R,S] (<=0 -> '.')
+//   0 = strided int lists: record-strided vals + lens [R,S] (<=0 -> '.')
 //   1 = pre-rendered blob: blob + offs [R*S+1], spans copied verbatim
 //   2 = missing-call dots: lens [R,S] -> '.' x len joined by delim
-// Threaded two-pass (length pass + write pass) over records.
+//   3 = strided float lists, as kind 0
+//   4 = GT text from record-strided vals, lens the [R,S] cell mask
+// Record-strided values (ops/combine_step.RecordStrided): record b's
+// [S, w[b]] values start at element off[b], so sample s of record b is
+// vals + off[b] + s * w[b]; a dense [B,S,W] array has off[b] = b*S*W
+// and w[b] = W.  Threaded two-pass (length pass + write pass) over
+// records.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -1280,7 +1235,8 @@ struct GroupArgs {
   int64_t n_cols;
   const int32_t* kinds;
   const void* const* vals_ptrs;
-  const int64_t* Ws;
+  const void* const* roff_ptrs;     // per column: off [B] (kinds 0, 3, 4)
+  const void* const* rw_ptrs;       // per column: w [B]
   const void* const* lens_ptrs;
   const void* const* blob_ptrs;
   const void* const* offs_ptrs;
@@ -1288,6 +1244,17 @@ struct GroupArgs {
   const int64_t* rows;
   int64_t R, S;
 };
+
+// Column c's values of record rows[r] at sample s, and their width.
+template <typename T>
+inline const T* rec_vals(const GroupArgs& a, int64_t c, int64_t r,
+                         int64_t s, int64_t* W) {
+  const int64_t b = a.rows[r];
+  const int64_t w = static_cast<const int64_t*>(a.rw_ptrs[c])[b];
+  *W = w;
+  return static_cast<const T*>(a.vals_ptrs[c])
+      + static_cast<const int64_t*>(a.roff_ptrs[c])[b] + s * w;
+}
 
 int64_t group_rec_len(const GroupArgs& a, int64_t r) {
   int64_t w = 0;
@@ -1312,9 +1279,8 @@ int64_t group_rec_len(const GroupArgs& a, int64_t r) {
         // GT text (encode_GT_vector): lens is the 0/1 cell mask; the
         // delims byte carries flags bit0=produce_GT, bit1=phase_in
         if (n <= 0) { ++w; continue; }
-        const int64_t W = a.Ws[c];
-        const int32_t* gv = static_cast<const int32_t*>(a.vals_ptrs[c])
-            + (a.rows[r] * a.S + s) * W;
+        int64_t W;
+        const int32_t* gv = rec_vals<int32_t>(a, c, r, s, &W);
         const bool produce = a.delims[c] & 1;
         const bool phase = a.delims[c] & 2;
         int64_t wrote = 0;
@@ -1330,18 +1296,16 @@ int64_t group_rec_len(const GroupArgs& a, int64_t r) {
         if (!wrote) ++w;                          // '.'
         continue;
       }
-      const int64_t W = a.Ws[c];
+      int64_t W;
+      const int32_t* src = rec_vals<int32_t>(a, c, r, s, &W);
       if (n > W) n = W;
       if (n <= 0) { ++w; continue; }
       w += n - 1;                                 // delims
-      if (k == 3) {
-        const float* srcf = static_cast<const float*>(a.vals_ptrs[c])
-            + (a.rows[r] * a.S + s) * W;
+      if (k == 3) {                               // 4-byte floats
+        const float* srcf = reinterpret_cast<const float*>(src);
         for (int64_t j = 0; j < n; ++j) w += float_text_len(srcf[j]);
         continue;
       }
-      const int32_t* src = static_cast<const int32_t*>(a.vals_ptrs[c])
-          + (a.rows[r] * a.S + s) * W;
       for (int64_t j = 0; j < n; ++j) w += int_text_len(src[j]);
     }
   }
@@ -1378,9 +1342,8 @@ void group_rec_write(const GroupArgs& a, int64_t r, char* out) {
       }
       if (k == 4) {
         if (n <= 0) { out[w++] = '.'; continue; }
-        const int64_t W = a.Ws[c];
-        const int32_t* gv = static_cast<const int32_t*>(a.vals_ptrs[c])
-            + (a.rows[r] * a.S + s) * W;
+        int64_t W;
+        const int32_t* gv = rec_vals<int32_t>(a, c, r, s, &W);
         const bool produce = a.delims[c] & 1;
         const bool phase = a.delims[c] & 2;
         int64_t wrote = 0;
@@ -1398,21 +1361,19 @@ void group_rec_write(const GroupArgs& a, int64_t r, char* out) {
         if (!wrote) out[w++] = '.';
         continue;
       }
-      const int64_t W = a.Ws[c];
+      int64_t W;
+      const int32_t* src = rec_vals<int32_t>(a, c, r, s, &W);
       if (n > W) n = W;
       if (n <= 0) { out[w++] = '.'; continue; }
       const char d = a.delims[c];
       if (k == 3) {
-        const float* srcf = static_cast<const float*>(a.vals_ptrs[c])
-            + (a.rows[r] * a.S + s) * W;
+        const float* srcf = reinterpret_cast<const float*>(src);
         for (int64_t j = 0; j < n; ++j) {
           if (j) out[w++] = d;
           w += emit_float_vcf(out + w, srcf[j]);
         }
         continue;
       }
-      const int32_t* src = static_cast<const int32_t*>(a.vals_ptrs[c])
-          + (a.rows[r] * a.S + s) * W;
       for (int64_t j = 0; j < n; ++j) {
         if (j) out[w++] = d;
         w += emit_int(out + w, src[j]);
@@ -1433,12 +1394,13 @@ void par_records(int64_t R, F f, int64_t work = -1) {
 
 extern "C" int64_t gdb_render_group(
     int64_t n_cols, const int32_t* kinds, const void* const* vals_ptrs,
-    const int64_t* Ws, const void* const* lens_ptrs,
+    const void* const* roff_ptrs, const void* const* rw_ptrs,
+    const void* const* lens_ptrs,
     const void* const* blob_ptrs, const void* const* offs_ptrs,
     const char* delims, const int64_t* rows, int64_t R, int64_t S,
     char* out, int64_t cap, int64_t* rec_offs) {
-  GroupArgs a{n_cols, kinds, vals_ptrs, Ws, lens_ptrs, blob_ptrs,
-              offs_ptrs, delims, rows, R, S};
+  GroupArgs a{n_cols, kinds, vals_ptrs, roff_ptrs, rw_ptrs, lens_ptrs,
+              blob_ptrs, offs_ptrs, delims, rows, R, S};
   const int64_t work = R * S * (n_cols > 0 ? n_cols : 1);
   rec_offs[0] = 0;
   par_records(R, [&a, rec_offs](int64_t lo, int64_t hi) {
@@ -1470,12 +1432,13 @@ extern "C" int64_t gdb_render_group(
 
 extern "C" void gdb_render_group_lens(
     int64_t n_cols, const int32_t* kinds, const void* const* vals_ptrs,
-    const int64_t* Ws, const void* const* lens_ptrs,
+    const void* const* roff_ptrs, const void* const* rw_ptrs,
+    const void* const* lens_ptrs,
     const void* const* blob_ptrs, const void* const* offs_ptrs,
     const char* delims, const int64_t* rows, int64_t R, int64_t S,
     int64_t* rec_lens) {
-  GroupArgs a{n_cols, kinds, vals_ptrs, Ws, lens_ptrs, blob_ptrs,
-              offs_ptrs, delims, rows, R, S};
+  GroupArgs a{n_cols, kinds, vals_ptrs, roff_ptrs, rw_ptrs, lens_ptrs,
+              blob_ptrs, offs_ptrs, delims, rows, R, S};
   const int64_t work = R * S * (n_cols > 0 ? n_cols : 1);
   par_records(R, [&a, rec_lens](int64_t lo, int64_t hi) {
     for (int64_t r = lo; r < hi; ++r) rec_lens[r] = group_rec_len(a, r);
@@ -1484,12 +1447,13 @@ extern "C" void gdb_render_group_lens(
 
 extern "C" void gdb_render_group_at(
     int64_t n_cols, const int32_t* kinds, const void* const* vals_ptrs,
-    const int64_t* Ws, const void* const* lens_ptrs,
+    const void* const* roff_ptrs, const void* const* rw_ptrs,
+    const void* const* lens_ptrs,
     const void* const* blob_ptrs, const void* const* offs_ptrs,
     const char* delims, const int64_t* rows, int64_t R, int64_t S,
     const int64_t* dest, char* out) {
-  GroupArgs a{n_cols, kinds, vals_ptrs, Ws, lens_ptrs, blob_ptrs,
-              offs_ptrs, delims, rows, R, S};
+  GroupArgs a{n_cols, kinds, vals_ptrs, roff_ptrs, rw_ptrs, lens_ptrs,
+              blob_ptrs, offs_ptrs, delims, rows, R, S};
   const int64_t work = R * S * (n_cols > 0 ? n_cols : 1);
   par_records(R, [&a, dest, out](int64_t lo, int64_t hi) {
     for (int64_t r = lo; r < hi; ++r)
@@ -1672,20 +1636,20 @@ extern "C" void gdb_assemble_write(
 
 // ---------------------------------------------------------------------------
 // Widen + scatter: narrow (int8/int16) variant-row device fetches ->
-// the int32 full-size output arrays, sentinel-remapped, threaded.
-// Replaces astype + two boolean-mask writes + a fancy-index scatter
-// (five numpy passes over the data).  elem = elements per row (S*W).
+// the int32 host outputs, sentinel-remapped, threaded.  Replaces
+// astype + two boolean-mask writes + a fancy-index scatter (five numpy
+// passes over the data).  elem = elements per row (S*W).
 // ---------------------------------------------------------------------------
 
 namespace {
 
 template <typename T>
-void widen_rows(const T* src, const int64_t* rows, int64_t n_rows,
-                int64_t elem, T miss, T eov, int32_t* out,
-                int64_t r0, int64_t r1) {
+void widen_rows(const T* src, const int64_t* dest_off, int64_t elem,
+                T miss, T eov, int32_t* out, int64_t r0, int64_t r1) {
   for (int64_t r = r0; r < r1; ++r) {
+    if (dest_off[r] < 0) continue;
     const T* s = src + r * elem;
-    int32_t* o = out + rows[r] * elem;
+    int32_t* o = out + dest_off[r];
     for (int64_t j = 0; j < elem; ++j) {
       const T v = s[j];
       o[j] = v == miss ? INT32_MIN
@@ -1697,8 +1661,12 @@ void widen_rows(const T* src, const int64_t* rows, int64_t n_rows,
 
 }  // namespace
 
+// Widen n_rows rows of `elem` narrow values to int32 with the sentinel
+// remap, row r written at element dest_off[r] of `out` (a negative
+// offset skips the row): the dense [B, ...] scatter and the
+// record-strided fill alike.
 extern "C" int gdb_widen_scatter(
-    const void* src, int32_t itemsize, const int64_t* rows,
+    const void* src, int32_t itemsize, const int64_t* dest_off,
     int64_t n_rows, int64_t elem, int64_t miss, int64_t eov,
     int32_t* out) {
   if (n_rows <= 0 || elem <= 0) return 0;
@@ -1706,7 +1674,7 @@ extern "C" int gdb_widen_scatter(
     using T = decltype(tag);
     const T* s = static_cast<const T*>(src);
     par_records(n_rows, [&](int64_t lo, int64_t hi) {
-      widen_rows<T>(s, rows, n_rows, elem, static_cast<T>(miss),
+      widen_rows<T>(s, dest_off, elem, static_cast<T>(miss),
                     static_cast<T>(eov), out, lo, hi);
     }, n_rows * elem);
   };

@@ -712,41 +712,43 @@ def identity_outputs(live, pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
                      dest_rows: np.ndarray = None):
     """Native form of combine_step.host_identity_outputs (the ref-block
     identity passthrough).  Returns the output dict or None when the
-    native library is unavailable.  With `out`/`dest_rows`, record b
-    writes into row dest_rows[b] of the caller's preallocated arrays
-    (the fetch path scatters ref rows straight into the full-size
-    outputs, no intermediate copy)."""
+    native library is unavailable.  Without `out`, dense outputs of
+    `widths` (G_out, M_out, P_out).  With `out`/`dest_rows`, record b
+    writes into record dest_rows[b] of the caller's outputs: PL / AD /
+    GT record-strided (`combine_step.RecordStrided`, or dense arrays,
+    their uniform case) at the widths they hold there, GQ / DP / MIN_DP
+    into the [B, S] arrays' rows (the split fetch fills its host
+    outputs in place, no intermediate copy)."""
+    from ..ops.combine_step import RecordStrided
     lib = get_lib()
     if lib is None:
         return None
     if not hasattr(lib, "_ident_bound"):
         i64, i32 = ctypes.c_int64, ctypes.c_int32
         p32 = np.ctypeslib.ndpointer(np.int32)
+        p64 = np.ctypeslib.ndpointer(np.int64)
         lib.gdb_identity_outputs.restype = ctypes.c_int
         lib.gdb_identity_outputs.argtypes = [
-            p32, ctypes.c_void_p, i64, i64, i64,   # live, dest, B, S, C
+            p32, i64, i64, i64,            # live, B, S, C
             p32, i64, p32,                 # pl, wpl, pl_len
             p32, i64, p32,                 # ad, wad, ad_len
             p32, i64,                      # gt, wgt
             p32, p32, p32,                 # gq, dp, min_dp
             ctypes.c_void_p,               # gt_len (or NULL)
-            i64, i64, i64,                 # g_out, m_out, p_out
             i32, i32, i32,                 # ploidy, gt_phase, mixed
-            p32, p32, p32, p32, p32, p32]  # outputs
+            p32, p64, p64,                 # pl out, off, w
+            p32, p64, p64,                 # ad out, off, w
+            p32, p64, p64,                 # gt out, off, w
+            p64, p32, p32, p32]            # dest rows, gq, dp, min_dp
         lib._ident_bound = True
-    G_out, M_out, P_out = widths
     live = np.ascontiguousarray(live, dtype=np.int32)
     B, S = live.shape
     C = pl.shape[1]
     pl = np.ascontiguousarray(pl, dtype=np.int32)
     ad = np.ascontiguousarray(ad, dtype=np.int32)
     gt = np.ascontiguousarray(gt, dtype=np.int32)
-    if dest_rows is not None:
-        dest_rows = np.ascontiguousarray(dest_rows, dtype=np.int64)
-        dest_ptr = dest_rows.ctypes.data_as(ctypes.c_void_p)
-    else:
-        dest_ptr = None
     if out is None:
+        G_out, M_out, P_out = widths
         out = {
             "pl": np.empty((B, S, G_out), np.int32),
             "ad": np.empty((B, S, M_out), np.int32),
@@ -755,7 +757,16 @@ def identity_outputs(live, pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
             "dp_format": np.empty((B, S), np.int32),
             "min_dp": np.empty((B, S), np.int32),
         }
-    for v in out.values():
+    dest = np.arange(B, dtype=np.int64) if dest_rows is None \
+        else np.ascontiguousarray(dest_rows, dtype=np.int64)
+    strided = []
+    for k in ("pl", "ad", "gt"):
+        f = RecordStrided.of(out[k])
+        assert f.vals.dtype == np.int32
+        strided += [f.vals, np.ascontiguousarray(f.off[dest]),
+                    np.ascontiguousarray(f.w[dest])]
+    for k in ("gq", "dp_format", "min_dp"):
+        v = out[k]
         assert v.flags.c_contiguous and v.dtype == np.int32
     if mixed:
         gt_len = np.ascontiguousarray(gt_len, dtype=np.int32)
@@ -763,17 +774,15 @@ def identity_outputs(live, pl, pl_len, ad, ad_len, gt, gq, dp, min_dp,
     else:
         gtl_ptr = None
     rc = lib.gdb_identity_outputs(
-        live, dest_ptr, B, S, C,
+        live, B, S, C,
         pl, pl.shape[2], np.ascontiguousarray(pl_len, dtype=np.int32),
         ad, ad.shape[2], np.ascontiguousarray(ad_len, dtype=np.int32),
         gt, gt.shape[2],
         np.ascontiguousarray(gq, dtype=np.int32),
         np.ascontiguousarray(dp, dtype=np.int32),
         np.ascontiguousarray(min_dp, dtype=np.int32),
-        gtl_ptr, G_out, M_out, P_out,
-        int(ploidy), int(bool(gt_phase)), int(bool(mixed)),
-        out["pl"], out["ad"], out["gt"], out["gq"], out["dp_format"],
-        out["min_dp"])
+        gtl_ptr, int(ploidy), int(bool(gt_phase)), int(bool(mixed)),
+        *strided, dest, out["gq"], out["dp_format"], out["min_dp"])
     if rc != 0:
         return None
     return out
@@ -833,52 +842,11 @@ def fmt_cohort(records: bytes, offs: np.ndarray, recs: np.ndarray,
     return True
 
 
-def render_strided_lists(vals: np.ndarray, rows: np.ndarray,
-                         lens: np.ndarray, delim: bytes = b","):
-    """FORMAT-column renderer over the FULL [B, S, W] value tensor:
-    entry (r, s) = vals[rows[r], s, :lens[r, s]] joined by `delim`
-    ('.' for empty; INT32_MIN renders '.').  Avoids the
-    gather-then-boolean-mask numpy copies of the per-column path.
-    Returns (bytes, offsets) like render_int_lists, or None when the
-    native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    if not hasattr(lib, "_strided_bound"):
-        i64 = ctypes.c_int64
-        lib.gdb_render_strided_lists.restype = i64
-        lib.gdb_render_strided_lists.argtypes = [
-            np.ctypeslib.ndpointer(np.int32), i64, i64,
-            np.ctypeslib.ndpointer(np.int64), i64,
-            np.ctypeslib.ndpointer(np.int64), ctypes.c_char,
-            ctypes.c_char_p, i64, np.ctypeslib.ndpointer(np.int64)]
-        lib._strided_bound = True
-    vals = np.ascontiguousarray(vals, dtype=np.int32)
-    if vals.ndim == 2:
-        vals = vals[:, :, None]
-    B, S, W = vals.shape
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    lens = np.ascontiguousarray(lens, dtype=np.int64)
-    R = len(rows)
-    n = R * S
-    total = int(np.minimum(lens, W).sum())
-    cap = max(16, total * 12 + n * 2)
-    out_arr, out = _text_buf(cap)
-    out_offsets = np.empty(n + 1, dtype=np.int64)
-    w = lib.gdb_render_strided_lists(vals, S, W, rows, R,
-                                     lens.reshape(-1), delim, out, cap,
-                                     out_offsets)
-    if w < 0:
-        raise RuntimeError("strided render overflow")
-    return out_arr[:w], out_offsets
-
-
 def _bind_group(lib):
     i64 = ctypes.c_int64
     vp = ctypes.POINTER(ctypes.c_void_p)
     common = [
-        i64, np.ctypeslib.ndpointer(np.int32), vp,
-        np.ctypeslib.ndpointer(np.int64), vp, vp, vp,
+        i64, np.ctypeslib.ndpointer(np.int32), vp, vp, vp, vp, vp, vp,
         ctypes.c_char_p, np.ctypeslib.ndpointer(np.int64), i64, i64]
     lib.gdb_render_group.restype = i64
     lib.gdb_render_group.argtypes = common + [
@@ -896,37 +864,50 @@ def _bind_group(lib):
 class _GroupDesc:
     """Marshalled gdb_render_group* argument pack for one signature
     group (kinds/widths/pointer tables + kept-alive source arrays)."""
-    __slots__ = ("k", "kinds", "Ws", "vpp", "lpp", "bpp", "opp",
+    __slots__ = ("k", "kinds", "vpp", "rpp", "wpp", "lpp", "bpp", "opp",
                  "delims", "rows", "R", "S", "cap", "keep")
 
 
 def _marshal_group(cols, rows: np.ndarray, S: int) -> _GroupDesc:
+    from ..ops.combine_step import RecordStrided
     rows = np.ascontiguousarray(rows, dtype=np.int64)
     R = len(rows)
     k = len(cols)
     kinds = np.zeros(k, np.int32)
-    Ws = np.zeros(k, np.int64)
     vals_p = (ctypes.c_void_p * k)()
+    roff_p = (ctypes.c_void_p * k)()
+    rw_p = (ctypes.c_void_p * k)()
     lens_p = (ctypes.c_void_p * k)()
     blob_p = (ctypes.c_void_p * k)()
     offs_p = (ctypes.c_void_p * k)()
     delims = bytearray(k)
     keep = []
     cap = R * max(S, 1) * (k + 1) + 16   # separators + dots floor
+
+    def strided(c, vals, dtype, lens):
+        """Column c's record-strided values; returns each cell's width
+        [R, 1]."""
+        if not isinstance(vals, RecordStrided):
+            vals = np.ascontiguousarray(vals, dtype=dtype)
+        f = RecordStrided.of(vals)
+        assert f.vals.dtype == dtype
+        keep.extend((f.vals, f.off, f.w, lens))
+        vals_p[c] = f.vals.ctypes.data
+        roff_p[c] = f.off.ctypes.data
+        rw_p[c] = f.w.ctypes.data
+        lens_p[c] = lens.ctypes.data
+        return f.w[rows][:, None]
+
     for c, col in enumerate(cols):
-        if col[0] == "ints":
+        if col[0] in ("ints", "floats"):
             _, vals, lens, delim = col
-            vals = np.ascontiguousarray(vals, dtype=np.int32)
-            if vals.ndim == 2:
-                vals = vals[:, :, None]
             lens = np.ascontiguousarray(lens, dtype=np.int32)
-            keep.append(vals); keep.append(lens)
-            kinds[c] = 0
-            Ws[c] = vals.shape[2]
-            vals_p[c] = vals.ctypes.data
-            lens_p[c] = lens.ctypes.data
+            is_f = col[0] == "floats"
+            w = strided(c, vals, np.float32 if is_f else np.int32, lens)
+            kinds[c] = 3 if is_f else 0
             delims[c] = delim[0]
-            cap += int(np.minimum(lens, vals.shape[2]).sum()) * 12
+            # worst case per float ~14 chars ("-0.000123" / %g forms)
+            cap += int(np.minimum(lens, w).sum()) * (16 if is_f else 12)
         elif col[0] == "blob":
             _, blob, offs = col
             if isinstance(blob, np.ndarray):
@@ -944,33 +925,13 @@ def _marshal_group(cols, rows: np.ndarray, S: int) -> _GroupDesc:
             kinds[c] = 1
             offs_p[c] = offs.ctypes.data
             cap += int(offs[-1])
-        elif col[0] == "floats":
-            _, vals, lens, delim = col
-            vals = np.ascontiguousarray(vals, dtype=np.float32)
-            if vals.ndim == 2:
-                vals = vals[:, :, None]
-            lens = np.ascontiguousarray(lens, dtype=np.int32)
-            keep.append(vals); keep.append(lens)
-            kinds[c] = 3
-            Ws[c] = vals.shape[2]
-            vals_p[c] = vals.ctypes.data
-            lens_p[c] = lens.ctypes.data
-            delims[c] = delim[0]
-            # worst case per float ~14 chars ("-0.000123" / %g forms)
-            cap += int(np.minimum(lens, vals.shape[2]).sum()) * 16
         elif col[0] == "gt":
             _, vals, cell_mask, produce, phase = col
-            vals = np.ascontiguousarray(vals, dtype=np.int32)
-            if vals.ndim == 2:
-                vals = vals[:, :, None]
             cell_mask = np.ascontiguousarray(cell_mask, dtype=np.int32)
-            keep.append(vals); keep.append(cell_mask)
+            w = strided(c, vals, np.int32, cell_mask)
             kinds[c] = 4
-            Ws[c] = vals.shape[2]
-            vals_p[c] = vals.ctypes.data
-            lens_p[c] = cell_mask.ctypes.data
             delims[c] = (1 if produce else 0) | (2 if phase else 0)
-            cap += int(cell_mask.sum()) * (vals.shape[2] * 12 + 2)
+            cap += int((cell_mask * (w * 12 + 2)).sum())
         elif col[0] == "dots":
             _, lens, delim = col
             lens = np.ascontiguousarray(lens, dtype=np.int32)
@@ -984,11 +945,12 @@ def _marshal_group(cols, rows: np.ndarray, S: int) -> _GroupDesc:
     d = _GroupDesc()
     d.k = k
     d.kinds = kinds
-    d.Ws = Ws
-    d.vpp = ctypes.cast(vals_p, ctypes.POINTER(ctypes.c_void_p))
-    d.lpp = ctypes.cast(lens_p, ctypes.POINTER(ctypes.c_void_p))
-    d.bpp = ctypes.cast(blob_p, ctypes.POINTER(ctypes.c_void_p))
-    d.opp = ctypes.cast(offs_p, ctypes.POINTER(ctypes.c_void_p))
+
+    def table(p):
+        return ctypes.cast(p, ctypes.POINTER(ctypes.c_void_p))
+
+    d.vpp, d.rpp, d.wpp = table(vals_p), table(roff_p), table(rw_p)
+    d.lpp, d.bpp, d.opp = table(lens_p), table(blob_p), table(offs_p)
     d.delims = bytes(delims)
     d.rows = rows
     d.R = R
@@ -1001,9 +963,13 @@ def _marshal_group(cols, rows: np.ndarray, S: int) -> _GroupDesc:
 def render_group_fused(cols, rows: np.ndarray, S: int):
     """One-pass FORMAT-group render (gdb_render_group): `cols` is a
     list of descriptors —
-      ("ints", vals [B,S,W] int32, lens [R,S], delim)
+      ("ints", vals, lens [R,S], delim)
+      ("floats", vals, lens [R,S], delim)
+      ("gt", vals, cell mask [R,S], produce_GT, phased)
       ("blob", blob bytes|uint8-array, offs int64 [R*S+1])
       ("dots", lens [R,S], delim)      # missing-call placeholders
+    where vals is a `combine_step.RecordStrided` or a dense [B,S(,W)]
+    array (its uniform case, taken without a copy).
     Returns (uint8 blob, rec_offsets[R+1]) of per-record sample text
     ("a:b\ta:b..."), or None when the native library is unavailable."""
     lib = get_lib()
@@ -1014,9 +980,9 @@ def render_group_fused(cols, rows: np.ndarray, S: int):
     d = _marshal_group(cols, rows, S)
     out_arr, out = _text_buf(d.cap)
     rec_offs = np.empty(d.R + 1, dtype=np.int64)
-    w = lib.gdb_render_group(d.k, d.kinds, d.vpp, d.Ws, d.lpp, d.bpp,
-                             d.opp, d.delims, d.rows, d.R, d.S, out,
-                             d.cap, rec_offs)
+    w = lib.gdb_render_group(d.k, d.kinds, d.vpp, d.rpp, d.wpp, d.lpp,
+                             d.bpp, d.opp, d.delims, d.rows, d.R, d.S,
+                             out, d.cap, rec_offs)
     if w < 0:
         raise RuntimeError("render_group overflow")
     return out_arr[:w], rec_offs
@@ -1031,9 +997,9 @@ def render_group_lens(desc: _GroupDesc) -> Optional[np.ndarray]:
     if not hasattr(lib, "_group_bound"):
         _bind_group(lib)
     lens = np.empty(desc.R, dtype=np.int64)
-    lib.gdb_render_group_lens(desc.k, desc.kinds, desc.vpp, desc.Ws,
-                              desc.lpp, desc.bpp, desc.opp, desc.delims,
-                              desc.rows, desc.R, desc.S, lens)
+    lib.gdb_render_group_lens(desc.k, desc.kinds, desc.vpp, desc.rpp,
+                              desc.wpp, desc.lpp, desc.bpp, desc.opp,
+                              desc.delims, desc.rows, desc.R, desc.S, lens)
     return lens
 
 
@@ -1045,17 +1011,19 @@ def render_group_at(desc: _GroupDesc, dest: np.ndarray,
     if not hasattr(lib, "_group_bound"):
         _bind_group(lib)
     dest = np.ascontiguousarray(dest, dtype=np.int64)
-    lib.gdb_render_group_at(desc.k, desc.kinds, desc.vpp, desc.Ws,
-                            desc.lpp, desc.bpp, desc.opp, desc.delims,
-                            desc.rows, desc.R, desc.S, dest,
+    lib.gdb_render_group_at(desc.k, desc.kinds, desc.vpp, desc.rpp,
+                            desc.wpp, desc.lpp, desc.bpp, desc.opp,
+                            desc.delims, desc.rows, desc.R, desc.S, dest,
                             out.ctypes.data_as(ctypes.c_void_p))
 
 
-def widen_scatter(narrow: np.ndarray, rows: np.ndarray, miss: int,
+def widen_scatter(narrow: np.ndarray, dest_off: np.ndarray, miss: int,
                   eov: int, out: np.ndarray):
-    """out[rows[i]] = int32-widened narrow[i] with sentinel remap
-    (miss -> INT_MISSING, eov -> INT_VECTOR_END), threaded.  Returns
-    None when the native library is unavailable (caller keeps numpy)."""
+    """Row r of `narrow` ([n, ...] int8 / int16), int32-widened with the
+    sentinel remap (miss -> INT_MISSING, eov -> INT_VECTOR_END), written
+    at element dest_off[r] of the flat int32 `out` (a negative offset
+    skips the row), threaded.  Returns None when the native library is
+    unavailable (caller keeps numpy)."""
     lib = get_lib()
     if lib is None:
         return None
@@ -1071,12 +1039,13 @@ def widen_scatter(narrow: np.ndarray, rows: np.ndarray, miss: int,
     if narrow.dtype.itemsize not in (1, 2):
         return None
     assert out.flags.c_contiguous and out.dtype == np.int32
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    dest_off = np.ascontiguousarray(dest_off, dtype=np.int64)
+    assert len(dest_off) == narrow.shape[0]
     elem = int(np.prod(narrow.shape[1:], dtype=np.int64)) \
         if narrow.ndim > 1 else 1
     rc = lib.gdb_widen_scatter(
         narrow.ctypes.data_as(ctypes.c_void_p), narrow.dtype.itemsize,
-        rows, narrow.shape[0], elem, int(miss), int(eov), out)
+        dest_off, narrow.shape[0], elem, int(miss), int(eov), out)
     return True if rc == 0 else None
 
 

@@ -99,6 +99,33 @@ def test_packed_port_over_small_chunks(cohort, monkeypatch):
     assert chunked == whole and len(whole.splitlines()) > 200
 
 
+@pytest.mark.parametrize("library", ["native", "none"])
+def test_packed_port_tetraploid_equals_unpacked(tmp_path, monkeypatch,
+                                                library):
+    """A small tetraploid cohort at 7 merged alleles (210 PL slots a
+    call): the packed fetch keeps its reference rows at 5 PL slots and
+    2 AD slots, and the text is byte-identical to the port with the
+    pack off (dense outputs through the same renderer); also where the
+    native library is missing, so the numpy fills and the Python
+    columns read the record-strided outputs."""
+    from genomicsdb_tpu_torch.runtime import native_loader
+    monkeypatch.setenv("GENOMICSDB_TPU_SERVING_INDEX", "0")
+    c = write_cohort(str(tmp_path), 12, 120, seed=3, n_groups=3, ploidy=4)
+    vcf2gdb.main([c.loader])
+    base = ["-j", c.query, "--produce-Broad-GVCF", "--engine", "block",
+            "--device", "cpu"]
+    plain = _run(torch_gdb_query.main, base, pack=False)
+    if library == "none":
+        native_loader.get_lib()
+        monkeypatch.setattr(native_loader, "_lib", None)
+    split0 = BW.render_block_vcf_pipelined.split_blocks
+    packed = _run(torch_gdb_query.main, base, pack=True)
+    assert BW.render_block_vcf_pipelined.split_blocks > split0
+    assert len(packed.splitlines()) > 300
+    assert "./././." in packed
+    assert packed == plain
+
+
 def test_packed_port_runs_with_jax_blocked(cohort):
     """The packed query in a fresh interpreter where `import jax` and
     `import genomicsdb_tpu` fail."""

@@ -103,9 +103,13 @@ def test_gt_int16_to_int8_overflow_refetches_int16():
     var = np.array([1, 4], np.int64)
     out["live"] = torch.from_numpy(live)
     split = TC.fetch_outputs_split(out, TC.pack_outputs(out, rows=var),
-                                   var, np.array([0, 2, 3, 5]), {})
+                                   var, np.array([0, 2, 3, 5]),
+                                   (live >= 0).any(axis=1), 2,
+                                   lambda dest, rows: None)
     np.testing.assert_array_equal(split["gt"], want)
-    np.testing.assert_array_equal(split["pl"][var], pl16[var])
+    assert isinstance(split["pl"], TC.RecordStrided)
+    np.testing.assert_array_equal(
+        np.stack([split["pl"].row(b) for b in var]), pl16[var])
 
 
 @pytest.mark.parametrize("mixed", [False, True])
@@ -149,57 +153,105 @@ def test_narrow_pack_fetch_roundtrip(mixed):
                TC.pack_outputs(out, rows=rows))
 
 
+#: the cohorts of the split-fetch tests: write_cohort options and the
+#: block's starting LUT width (7 merged alleles: the tetraploid bench
+#: cell's 210 PL slots a call)
+COHORTS = {
+    "diploid": (dict(), 4),
+    "tetraploid": (dict(ploidy=4), 7),
+    "mixed_ploidy": (dict(triploid_every=3, haploid_stretch=True), 4),
+    "phased": (dict(phased_share=0.4), 4),
+}
+
+
 @pytest.fixture(scope="module")
-def store_block(tmp_path_factory):
-    """The port's CellBlock (and meta) of a small seeded cohort."""
-    c = write_cohort(str(tmp_path_factory.mktemp("pack")), 6, 90, seed=3,
-                     n_groups=2)
-    vcf2gdb.main([c.loader])
-    args = torch_gdb_query._build_parser().parse_args(
-        ["-j", c.query, "--produce-Broad-GVCF"])
-    _, qp, vid, store = torch_gdb_query.load_context(args, 0)
-    qc = make_query_config(qp, vid)
-    return store_to_block(store, qc, interval=(0, c.region),
-                          max_merged=4, return_meta=True)
+def store_blocks(tmp_path_factory):
+    """The port's CellBlock and meta of each of COHORTS (built once)."""
+    got = {}
+
+    def block(kind):
+        if kind not in got:
+            opts, max_merged = COHORTS[kind]
+            c = write_cohort(str(tmp_path_factory.mktemp(kind)), 12, 120,
+                             seed=3, n_groups=3, **opts)
+            vcf2gdb.main([c.loader])
+            args = torch_gdb_query._build_parser().parse_args(
+                ["-j", c.query, "--produce-Broad-GVCF"])
+            _, qp, vid, store = torch_gdb_query.load_context(args, 0)
+            qc = make_query_config(qp, vid)
+            got[kind] = store_to_block(store, qc, interval=(0, c.region),
+                                       max_merged=max_merged,
+                                       return_meta=True)
+        return got[kind]
+    return block
 
 
-@pytest.mark.parametrize("ident_form", ["dict", "native_fill"])
-def test_split_fetch_matches_full_fetch(store_block, ident_form):
-    """Variant-row-only fetch of the narrow outputs + host identity
-    rebuild equals the full fetch of the wide outputs at every live
-    cell (ref rows are identity remaps; other cells are never read),
-    and everywhere for the [B, S] columns and the reductions."""
-    blk, meta = store_block
-    flags = dict(max_merged=blk.inv_bs.shape[2], ploidy=blk.ploidy,
-                 gt_phase=meta.plan.gt_phase)
+def _split_and_full(blk, meta):
+    """(the whole fetch of the wide outputs, the split fetch of the
+    narrow ones, its host_output_bytes count) of one block."""
+    from genomicsdb_tpu_torch.core import profile
+    from genomicsdb_tpu_torch.query.block_writer import _block_flags
+    ploidy, max_merged, mixed = _block_flags(blk)
+    flags = dict(max_merged=max_merged, ploidy=ploidy,
+                 gt_phase=meta.plan.gt_phase, mixed_ploidy=mixed)
     full = TC.fetch_outputs(FC.combine_block(blk, "cpu", **flags))
     out = FC.combine_block(blk, "cpu", narrow_out=True, **flags)
     assert out["pl"].dtype == torch.int16
     var_rows = np.nonzero(~meta.is_ref_block_only)[0]
     ref_rows = np.nonzero(meta.is_ref_block_only)[0]
     assert len(ref_rows) > 10 and len(var_rows) > 3
-    widths = (out["pl"].shape[-1], out["ad"].shape[-1],
-              out["gt"].shape[-1])
-    if ident_form == "dict":
-        ident = TC.host_identity_outputs(blk, ref_rows, widths,
-                                         meta.plan.gt_phase, False)
-    else:
-        if native_loader.get_lib() is None:
-            pytest.skip("native library unavailable")
-
-        def ident(dest):
-            assert dest is not None
-            return native_loader.identity_outputs(
-                blk.live[ref_rows], blk.pl, blk.pl_len, blk.ad,
-                blk.ad_len, blk.gt, blk.gq, blk.dp, blk.min_dp, None,
-                widths, blk.ploidy, meta.plan.gt_phase, False, out=dest,
-                dest_rows=ref_rows) is not None
     packed = TC.pack_outputs(out, rows=var_rows)
-    dev = TC.fetch_outputs_split(out, packed, var_rows, ref_rows, ident)
+    n0 = profile.COUNTS.host_output_bytes
+    dev = TC.fetch_outputs_split(
+        out, packed, var_rows, ref_rows, (blk.live >= 0).any(axis=1),
+        blk.ploidy,
+        lambda dest, rows: TC.identity_fill(blk, dest, rows,
+                                            meta.plan.gt_phase, mixed))
+    return full, dev, profile.COUNTS.host_output_bytes - n0
+
+
+@pytest.mark.parametrize("cohort", sorted(COHORTS))
+@pytest.mark.parametrize("fill", ["native", "numpy"])
+def test_split_fetch_matches_full_fetch(store_blocks, cohort, fill,
+                                        monkeypatch):
+    """Variant-row-only fetch of the narrow outputs + host identity
+    rebuild, each record at its own width, equals the full fetch of the
+    wide outputs at every live cell and every slot below the record's
+    width (ref rows are identity remaps; other cells are never read);
+    the full fetch's slots past a ref row's width hold only filler
+    (MISSING / VECTOR_END), which no renderer reads; rows without a
+    live cell take width 0; the [B, S] columns and the reductions are
+    equal everywhere.  With the native widen and identity fill, and
+    with the numpy forms that run without the native library."""
+    if fill == "numpy":
+        monkeypatch.setattr(native_loader, "widen_scatter",
+                            lambda *a, **k: None)
+        monkeypatch.setattr(native_loader, "identity_outputs",
+                            lambda *a, **k: None)
+    elif native_loader.get_lib() is None:
+        pytest.skip("native library unavailable")
+    blk, meta = store_blocks(cohort)
+    full, dev, _ = _split_and_full(blk, meta)
     live_ok = blk.live >= 0
+    emitted = live_ok.any(axis=1)
+    ref = meta.is_ref_block_only
     for k in ("pl", "ad", "gt"):
-        np.testing.assert_array_equal(full[k][live_ok], dev[k][live_ok],
-                                      err_msg=k)
+        f = dev[k]
+        assert isinstance(f, TC.RecordStrided), k
+        W = full[k].shape[2]
+        np.testing.assert_array_equal(f.w[~emitted], 0, err_msg=k)
+        np.testing.assert_array_equal(f.w[emitted & ~ref], W, err_msg=k)
+        assert (f.w[emitted & ref] <= W).all()
+        for b in np.nonzero(emitted)[0]:
+            w = int(f.w[b])
+            s_ok = live_ok[b]
+            np.testing.assert_array_equal(
+                full[k][b, s_ok, :w], f.row(b)[s_ok],
+                err_msg=f"{cohort} {k} record {b}")
+            past = full[k][b, s_ok, w:]
+            assert np.isin(past, (MISS, EOV)).all(), (k, b)
+    if cohort == "mixed_ploidy":
+        assert (blk.gt_len_bs[live_ok] != blk.gt.shape[2]).any()
     for k in full:
         if k in ("pl", "ad", "gt", "live"):
             continue
@@ -207,6 +259,22 @@ def test_split_fetch_matches_full_fetch(store_block, ident_form):
         if a.dtype.kind == "f":
             a, b = a.view(np.int32), b.view(np.int32)
         np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_split_fetch_host_outputs_are_small(store_blocks):
+    """On the tetraploid block at 7 merged alleles (210 PL slots a call)
+    the split fetch's host outputs take at most a fifth of a dense
+    [B, S, G_out] int32 PL array: no array of that size is made for the
+    reference rows.  The counter host_output_bytes equals the returned
+    outputs' bytes."""
+    blk, meta = store_blocks("tetraploid")
+    full, dev, counted = _split_and_full(blk, meta)
+    B, S, G_out = full["pl"].shape
+    assert G_out == 210
+    got = sum(v.nbytes for v in dev.values())
+    assert counted == got
+    assert got <= B * S * G_out * 4 / 5, (got, B * S * G_out * 4)
+    assert dev["pl"].vals.size < B * S * G_out / 5
 
 
 def test_host_identity_outputs_numpy_matches_native(monkeypatch):
