@@ -633,10 +633,15 @@ def combine_block(blk, device, *, max_merged: int, ploidy: int,
     in `combine_block.general_path_blocks`, the kernel blocks that
     asked for the narrow form but took the wide one (values past the
     int16 range) in `combine_block.wide_blocks_when_packing`, and the
-    kernel blocks of mixed ploidy in `combine_block.mixed_blocks`.
-    Timed as the span `device.combine`: the upload, the launch and the
-    torch post-pass as the host enqueues them."""
+    kernel blocks of mixed ploidy in `combine_block.mixed_blocks`; the
+    program counters `combine_blocks`, `combine_general_blocks` and
+    `combine_mixed_blocks` count the same blocks in `profile.COUNTS`
+    and the open request's tally.  Timed as the span `device.combine`:
+    the upload, the launch and the torch post-pass as the host enqueues
+    them; a general-path block's `combine_step` is the span
+    `device.combine.general` inside it."""
     combine_block.blocks += 1
+    profile.count("combine_blocks")
     with profile.span("device.combine"):
         out = combine_step_fused(blk, device, max_merged=max_merged,
                                  ploidy=ploidy, gt_phase=gt_phase,
@@ -644,14 +649,18 @@ def combine_block(blk, device, *, max_merged: int, ploidy: int,
                                  med_rows=med_rows, narrow_out=narrow_out)
         if out is None:
             combine_block.general_path_blocks += 1
-            return combine_step(*block_to_tensors(blk, device),
-                                med_rows=med_rows, max_merged=max_merged,
-                                ploidy=ploidy, gt_phase=gt_phase,
-                                mixed_ploidy=mixed_ploidy)
+            profile.count("combine_general_blocks")
+            t = block_to_tensors(blk, device)
+            with profile.span("device.combine.general"):
+                return combine_step(*t, med_rows=med_rows,
+                                    max_merged=max_merged, ploidy=ploidy,
+                                    gt_phase=gt_phase,
+                                    mixed_ploidy=mixed_ploidy)
     if narrow_out and out["pl"].dtype != torch.int16:
         combine_block.wide_blocks_when_packing += 1
     if mixed_ploidy:
         combine_block.mixed_blocks += 1
+        profile.count("combine_mixed_blocks")
     return out
 
 
